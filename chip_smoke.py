@@ -1,0 +1,387 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed 0]
+
+Builds the port's kernels from nerf_emitter_tpu_torch/csrc with nvcc, holds
+each kernel against its plain PyTorch twin at the emitter query's shapes,
+answers 2^16 escaped emitter rays at the full width of the sdf-nerfacto
+`freq` model (random weights from --seed) through the kernel query, checks
+the answer against the model's plain forward, and runs a backward pass
+through the query. Every phase prints one JSON line; any failure raises
+and the script exits non-zero. The last line is
+{"ok": true, "device": {...}}.
+
+Needs a CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+AABB = ((-1.5, -1.5, -1.5), (1.5, 1.5, 1.5))
+OBJECT_BOX = ((-0.3, -0.3, -0.3), (0.3, 0.3, 0.3))
+SAMPLES = (256, 96)
+NERF_SAMPLES = 48
+RAYS = 1 << 16  # escaped rays per emitter query, a multiple of the 128-ray tile
+CHECK_RAYS = 4096  # rays held against the model forward, and differentiated
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps calls, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float) -> dict:
+    """Errors of a against the reference b, the share of its elements
+    within atol + rtol |b|, and whether all of them are."""
+    a, b = a.detach().float(), b.detach().float()
+    err = (a - b).abs()
+    inside = err <= atol + rtol * b.abs()
+    ok = bool(torch.isfinite(a).all()) and bool(inside.all())
+    return dict(max_abs_err=float(err.max()), max_rel_err=float((err / b.abs().clamp(min=atol)).max()),
+                rtol=rtol, atol=atol, share_within=float(inside.float().mean()), within=ok)
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def mlp_macs(ws) -> int:
+    """Multiply-adds per sample of an MLP given its (in, out) weights."""
+    return sum(w.shape[0] * w.shape[1] for w in ws)
+
+
+def emitter_rays(n: int, seed: int, device):
+    """x_unit uniform in [0.35, 0.65]^3 (around the object box), d uniform
+    on the sphere."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = 0.35 + 0.3 * torch.rand((n, 3), generator=g)
+    d = torch.randn((n, 3), generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    return x.to(device), d.to(device)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from nerf_emitter_tpu_torch import kernels
+    from nerf_emitter_tpu_torch.cameras.rays import RayBundle
+    from nerf_emitter_tpu_torch.models.nerfacto import NerfactoModel
+    from nerf_emitter_tpu_torch.ops import fused_field as ff
+    from nerf_emitter_tpu_torch.ops import mega_query as mq
+    from nerf_emitter_tpu_torch.ops.colliders import aabb_far_intersect_collider
+    from nerf_emitter_tpu_torch.pipelines.nerf_emitter import make_nerf_emitter_fn
+    from nerf_emitter_tpu_torch.utils.coords import unit_to_world
+
+    # f32 comparisons on the card run in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    print(card, flush=True)
+
+    # ---- phase 1: build
+    info = kernels.build()
+    ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
+             for k, v in info["ptxas"].items()}
+    emit(dict(phase="build", card=card, seconds=info["seconds"], dir=info["dir"],
+              compiled=info["compiled"], ptxas=ptxas))
+
+    # ---- the model at full sdf-nerfacto width, random weights from the seed
+    torch.manual_seed(args.seed)
+    model = NerfactoModel(
+        AABB, num_nerf_samples=NERF_SAMPLES, num_proposal_samples=SAMPLES, num_cameras=128,
+        appearance_embedding_dim=32, implementation="freq", device=dev,
+    )
+    p = ff.named_params(model)
+    cfg = dict(aabb_lo=tuple(x for x in AABB[0]), aabb_inv_ext=(1.0 / 3.0,) * 3,
+               disable_box=OBJECT_BOX, avg_density=1.0)
+    n, nc = RAYS, CHECK_RAYS
+    s0, s1 = SAMPLES
+    s2 = NERF_SAMPLES
+
+    def ray_bundle(far, m=n):
+        """The first m of the main path's rays as make_nerf_emitter_fn
+        builds them (camera 0)."""
+        rays = RayBundle(
+            origins=unit_to_world(x_unit[:m], 1.0), directions=d[:m],
+            pixel_area=torch.full((m, 1), 1e-4, device=dev), nears=torch.zeros((m, 1), device=dev),
+            fars=torch.full((m, 1), far, device=dev),
+            camera_indices=torch.zeros((m, 1), dtype=torch.long, device=dev),
+        )
+        return aabb_far_intersect_collider(rays, torch.tensor(OBJECT_BOX, device=dev), far=far)
+
+    def ray_rows(far):
+        """The main path's rays in the kernels' (3, N) / (1, N) layout."""
+        rays = ray_bundle(far)
+        return [t.T.contiguous() for t in (rays.origins, rays.directions, rays.nears, rays.fars)]
+
+    def split(rgb, aux):
+        """(3, N) answer and K4's (4, N) aux -> the well-posed foreground
+        sum(w rgb) (3, N) and the accumulation (N,)."""
+        return rgb - aux[1:] * (1.0 - aux[:1]), aux[0]
+
+    # At the emitter's far = 1e3 the last (background) sample sits ~500
+    # units out, where the spacing warp 1 / (2 - 2 s) has a slope of ~2e6:
+    # one ulp of a spacing bin moves that sample by ~0.1 units, which
+    # scrambles the top octaves of its encoding and so its colour. Any two
+    # implementations of the sampler (kernel and twin, kernel query and
+    # model forward) then disagree on that colour by several %; the K4
+    # phase measures how far a 1-ulp shift of the bins moves the answer.
+    # That colour enters the answer only as the background term
+    # rgb_last (1 - acc). The rest, the foreground sum(w rgb) and the
+    # accumulation, is well posed on given bins, but not across samplers:
+    # the bins near the scene-box face are wide at far = 1e3, and a shift
+    # of a bin edge by the samplers' ~1e-4 of the spacing range can move
+    # a midpoint across the face and flip its keep mask. So at far = 1e3
+    # the main path's answer is held through its two kernels: it equals
+    # K4 on K3's bins bit for bit, K3's bins agree with its twin (atol
+    # 2e-3), and on those bins K4's foreground and accumulation agree with
+    # its twin within 1% and its whole answer within 10%. At far = 4,
+    # which keeps the last sample near the scene, the query is held to the
+    # model forward within 3%; at far = 1e3 that comparison is reported.
+    x_unit, d = emitter_rays(n, args.seed, dev)
+    o_t, d_t, near_t, far_t = ray_rows(1e3)
+    rows4 = ray_rows(4.0)
+
+    # ---- phase 2: each kernel against its twin at the main path's shapes
+    results = {}
+    g = torch.Generator(device=dev).manual_seed(args.seed + 1)
+
+    @torch.no_grad()
+    def kernel_phase(name, replaces, source, run, twin, compare, flops, nbytes, reps):
+        out_k, out_t = run(), twin()
+        torch.cuda.synchronize()
+        checks = compare(out_k, out_t)
+        del out_t
+        ms = cuda_ms(run, reps)
+        plain_ms = cuda_ms(twin, 1)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        res = dict(name=name, route="cuda", source=source, replaces=replaces, checks=checks,
+                   max_abs_err=max(c["max_abs_err"] for c in checks.values()), ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   flops=flops, bytes=nbytes)
+        emit(dict(phase="kernel", **res))
+        if not all(c["within"] for c in checks.values()):
+            raise AssertionError(f"{name}: kernel disagrees with its twin: {checks}")
+        results[name] = res
+        del out_k
+        torch.cuda.empty_cache()
+
+    # K1 at both proposal levels, as the backward runs it (one launch each):
+    # 2^16 x 256 samples with F=4 and 2^16 x 96 samples with F=6
+    ws0, bs0 = ff._mlp_params(p, "proposal_0.mlp")
+    ws1, bs1 = ff._mlp_params(p, "proposal_1.mlp")
+    levels = [(torch.rand((3, n * s), generator=g, device=dev) * 3.2 - 1.6, ws, bs, dict(num_freqs=f, **cfg))
+              for s, ws, bs, f in ((s0, ws0, bs0, 4), (s1, ws1, bs1, 6))]
+    kernel_phase(
+        "fused_density", "nerf_emitter_tpu/ops/fused_field.py:236",
+        "nerf_emitter_tpu_torch/csrc/fused_density.cu",
+        lambda: [ff._launch_density(pos, ws, bs, **kw) for pos, ws, bs, kw in levels],
+        lambda: [ff._plain_density(pos, ws, bs, **kw) for pos, ws, bs, kw in levels],
+        # f32 sums in another order can flip a bf16 rounding of a hidden unit
+        lambda a, b: {f"density_level{i}": close(ai, bi, rtol=1e-2, atol=1e-4)
+                      for i, (ai, bi) in enumerate(zip(a, b))},
+        sum(2.0 * pos.shape[1] * mlp_macs(ws) for pos, ws, _, _ in levels),
+        sum(pos.shape[1] * 16.0 for pos, _, _, _ in levels), reps=3,
+    )
+    del levels
+
+    # K2 at the field shape: 2^16 x 48 samples, F=10
+    m2 = n * s2
+    pos2 = (torch.rand((3, m2), generator=g, device=dev) * 3.2 - 1.6).contiguous()
+    dirs2 = torch.randn((3, m2), generator=g, device=dev)
+    dirs2 = (dirs2 / dirs2.norm(dim=0, keepdim=True)).contiguous()
+    bws, bbs = ff._mlp_params(p, "field.base_mlp")
+    hws, hbs = ff._mlp_params(p, "field.head_mlp")
+    emb = p["field.appearance_embedding.weight"][0].contiguous()
+    k2 = dict(num_freqs=10, hdr=True, rgb_bias=0.0, **cfg)
+    kernel_phase(
+        "fused_field", "nerf_emitter_tpu/ops/fused_field.py:391",
+        "nerf_emitter_tpu_torch/csrc/fused_field.cu",
+        lambda: ff._launch_field(pos2, dirs2, emb, bws, bbs, hws, hbs, **k2),
+        lambda: ff._plain_field(pos2, dirs2, emb, bws, bbs, hws, hbs, **k2),
+        lambda a, b: {"density": close(a[0], b[0], rtol=1e-2, atol=1e-4),
+                      "rgb": close(a[1], b[1], rtol=1e-2, atol=1e-4)},
+        2.0 * m2 * (mlp_macs(bws) + mlp_macs(hws)), m2 * 40.0, reps=3,
+    )
+    del pos2, dirs2
+
+    # K3 on the main path's rays; the f-major first-layer rows the query uses
+    k3 = dict(s0=s0, s1=s1, s2=s2, freqs0=4, freqs1=6, **cfg)
+    w0p, w1p = ff.permute_first(ws0, 4), ff.permute_first(ws1, 6)
+    kernel_phase(
+        "proposal", "nerf_emitter_tpu/ops/mega_query.py:711",
+        "nerf_emitter_tpu_torch/csrc/proposal.cu",
+        lambda: mq.proposal_bins(o_t, d_t, near_t, far_t, w0p, bs0, w1p, bs1, **k3),
+        lambda: mq._plain_proposal(o_t, d_t, near_t, far_t, w0p, bs0, w1p, bs1, **k3),
+        # spacing bins in [0, 1]: density roundoff moves the CDF by ~1e-4
+        lambda a, b: {"sbins": close(a, b, rtol=0.0, atol=2e-3)},
+        2.0 * n * (s0 * mlp_macs(ws0) + s1 * mlp_macs(ws1)), n * (8 + s2 + 1) * 4.0, reps=3,
+    )
+
+    # K4 on the bins K3 gives these rays
+    bwp = ff.permute_first(bws, 10)
+    k4 = dict(s2=s2, freqs=10, hdr=True, rgb_bias=0.0, **cfg)
+    with torch.no_grad():
+        sbins = mq.proposal_bins(o_t, d_t, near_t, far_t, w0p, bs0, w1p, bs1, **k3)
+        sbins4 = mq.proposal_bins(*rows4, w0p, bs0, w1p, bs1, **k3)
+
+    def ulp_shift(bins, rows, out):
+        """Largest relative move of the kernel's answer when every spacing
+        bin moves up by one ulp: how well posed the comparison is."""
+        up = torch.nextafter(bins, torch.full_like(bins, 2.0))
+        moved = mq.field_composite(up, *rows, emb, bwp, bbs, hws, hbs, **k4)
+        return float(((moved - out).abs() / out.abs().clamp(min=1e-3)).max())
+
+    def k4_checks(a, b):
+        with torch.no_grad():
+            a4 = mq.field_composite(sbins4, *rows4, emb, bwp, bbs, hws, hbs, **k4)
+            b4 = mq._plain_field_composite(sbins4, *rows4, emb, bwp, bbs, hws, hbs, **k4)
+            rows = (o_t, d_t, near_t, far_t)
+            fg_a, acc_a = split(*mq.field_composite(sbins, *rows, emb, bwp, bbs, hws, hbs, **k4,
+                                                    with_aux=True))
+            fg_b, acc_b = split(*mq._plain_field_composite(sbins, *rows, emb, bwp, bbs, hws, hbs, **k4,
+                                                           with_aux=True))
+            return {"rgb_far1e3": close(a, b, rtol=1e-1, atol=1e-3)
+                    | {"one_ulp_bin_shift_rel": ulp_shift(sbins, rows, a)},
+                    "foreground_far1e3": close(fg_a, fg_b, rtol=1e-2, atol=1e-3),
+                    "acc_far1e3": close(acc_a, acc_b, rtol=1e-2, atol=1e-3),
+                    "rgb_far4": close(a4, b4, rtol=1e-2, atol=1e-3)
+                    | {"one_ulp_bin_shift_rel": ulp_shift(sbins4, rows4, a4)}}
+
+    kernel_phase(
+        "field_composite", "nerf_emitter_tpu/ops/mega_query.py:731",
+        "nerf_emitter_tpu_torch/csrc/field_composite.cu",
+        lambda: mq.field_composite(sbins, o_t, d_t, near_t, far_t, emb, bwp, bbs, hws, hbs, **k4),
+        lambda: mq._plain_field_composite(sbins, o_t, d_t, near_t, far_t, emb, bwp, bbs, hws, hbs, **k4),
+        k4_checks,
+        2.0 * n * s2 * (mlp_macs(bws) + mlp_macs(hws)), n * (s2 + 1 + 8 + 3) * 4.0, reps=3,
+    )
+    del sbins4
+
+    # ---- phase 3: the main path, 2^16 escaped rays through make_nerf_emitter_fn
+    emitter = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX)(camera_index=0)
+    kernels.reset_launches()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        rgb = emitter(x_unit, d)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    fwd_launches = dict(kernels.launches)
+    if fwd_launches.get("proposal", 0) < 1 or fwd_launches.get("field_composite", 0) < 1:
+        raise AssertionError(f"the main path did not run K3 and K4: {fwd_launches}")
+    if rgb.shape != (n, 3) or not bool(torch.isfinite(rgb).all()):
+        raise AssertionError("emitter output is not finite (n, 3)")
+
+    # the same rays through the model's plain forward on the card
+    plain = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, use_fused=False)(camera_index=0)
+    with torch.no_grad():
+        ref = plain(x_unit[:nc], d[:nc])
+    main_check = close(rgb[:nc], ref, rtol=3e-2, atol=1e-3)
+
+    # K4 on the bins K3 gave these rays in phase 2 (held there against
+    # both twins) reproduces the main path's answer bit for bit. With it
+    # come each ray's accumulation and last-sample colour, which split the
+    # answer against the model forward with a black background (reported).
+    with torch.no_grad():
+        rgb_t, aux = mq.field_composite(sbins, o_t, d_t, near_t, far_t, emb, bwp, bbs, hws, hbs, **k4,
+                                        with_aux=True)
+        if not torch.equal(rgb_t.T, rgb):
+            raise AssertionError("K4 on K3's bins does not reproduce the main path's answer")
+        fg, acc = split(rgb_t[:, :nc], aux[:, :nc])
+        black = copy.copy(model)
+        black.background_color = "black"
+        ref_fg = black(ray_bundle(1e3, nc), disable_aabb=torch.tensor(OBJECT_BOX, device=dev),
+                       disable_aabb_on=True)
+    fg_check = {"foreground": close(fg.T, ref_fg["rgb"], rtol=3e-2, atol=1e-3),
+                "acc": close(acc, ref_fg["accumulation"][:, 0], rtol=3e-2, atol=1e-3)}
+    del sbins, rgb_t, aux
+    with torch.no_grad():
+        near_k = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, far=4.0)(camera_index=0)(x_unit[:nc], d[:nc])
+        near_p = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, far=4.0, use_fused=False)(
+            camera_index=0)(x_unit[:nc], d[:nc])
+    far4_check = close(near_k, near_p, rtol=3e-2, atol=1e-3)
+
+    with torch.no_grad():
+        ms = cuda_ms(lambda: emitter(x_unit, d), 5)
+    emit(dict(phase="main_path", rays=n, samples=[s0, s1, s2], ms_per_query=ms,
+              rays_per_s=n / (ms * 1e-3), first_call_s=first_s, launches=fwd_launches,
+              vs_model_far1e3=main_check, vs_model_far1e3_split=fg_check, vs_model_far4=far4_check,
+              rgb_mean=float(rgb.mean()), peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30))
+    if not far4_check["within"]:
+        raise AssertionError(f"kernel query disagrees with the model forward: {far4_check}")
+
+    # ---- phase 4: backward through the emitter w.r.t. the ray origins
+    xg = x_unit[:nc].clone().requires_grad_()
+    kernels.reset_launches()
+    out = emitter(xg, d[:nc])
+    out.sum().backward()
+    torch.cuda.synchronize()
+    bwd_launches = dict(kernels.launches)
+    grad_ok = bool(torch.isfinite(xg.grad).all()) and float(xg.grad.abs().sum()) > 0
+    emit(dict(phase="backward", rays=nc, launches=bwd_launches, grad_finite=grad_ok,
+              grad_abs_mean=float(xg.grad.abs().mean())))
+    if bwd_launches.get("fused_density", 0) < 2 or bwd_launches.get("fused_field", 0) < 1:
+        raise AssertionError(f"the backward did not run K1 and K2: {bwd_launches}")
+    if not grad_ok:
+        raise AssertionError("non-finite or zero gradients")
+
+    # ---- phase 5: the kernels line. K3 and K4 carry the query (phase 3),
+    # K1 and K2 its backward (phase 4); each reports its launches in the
+    # run of its own path.
+    path_of = {"proposal": "query", "field_composite": "query",
+               "fused_density": "backward", "fused_field": "backward"}
+    counts = {"query": fwd_launches, "backward": bwd_launches}
+    line = {"kernels": [
+        {k: results[name][k] for k in ("name", "route", "source", "replaces")}
+        | {"path": path_of[name], "launches": counts[path_of[name]].get(name, 0)}
+        | {k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")}
+        for name in results
+    ]}
+    print(card, flush=True)
+    emit(line)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

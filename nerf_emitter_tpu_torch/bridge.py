@@ -1,0 +1,66 @@
+"""Carry weights from the JAX package's flax parameter tree into the port.
+
+`tree` is the flax `params` pytree as nested dicts of numpy arrays (for
+example `jax.tree.map(np.asarray, params)`), with or without the top-level
+"params" key. Dense layers are `<path>/{hidden_i,out}/{kernel (in, out),
+bias}`; the port's nn.Linear weight is (out, in), so kernels are
+transposed. The appearance table is `field/appearance_embedding/embedding`.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _flax_path(module: nn.Module, torch_name: str) -> tuple[str, bool]:
+    """torch parameter name -> (flax path, transpose?)."""
+    *mods, leaf = torch_name.split(".")
+    owner = module.get_submodule(".".join(mods)) if mods else module
+    path = "/".join(mods)
+    if isinstance(owner, nn.Embedding):
+        return f"{path}/embedding", False
+    if isinstance(owner, nn.Linear):
+        return (f"{path}/kernel", True) if leaf == "weight" else (f"{path}/bias", False)
+    raise KeyError(f"no flax counterpart for parameter {torch_name!r}")
+
+
+def load_flax_params(model: nn.Module, tree: Mapping) -> nn.Module:
+    """Copy every parameter of `model` from `tree`, in place. Raises
+    KeyError on a missing or extra key and ValueError on a shape mismatch,
+    so a tree of another depth cannot load silently."""
+    if "params" in tree and len(tree) == 1:
+        tree = tree["params"]
+    flat = _flatten(tree)
+    wanted = {}
+    for name, param in model.named_parameters():
+        path, transpose = _flax_path(model, name)
+        wanted[path] = (param, transpose)
+    missing = sorted(set(wanted) - set(flat))
+    extra = sorted(set(flat) - set(wanted))
+    if missing or extra:
+        raise KeyError(f"flax tree mismatch: missing {missing}, extra {extra}")
+    with torch.no_grad():
+        for path, (param, transpose) in wanted.items():
+            arr = flat[path].T if transpose else flat[path]
+            if tuple(arr.shape) != tuple(param.shape):
+                raise ValueError(
+                    f"{path}: flax shape {flat[path].shape} does not fit "
+                    f"parameter shape {tuple(param.shape)}"
+                )
+            param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    return model

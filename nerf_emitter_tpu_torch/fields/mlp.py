@@ -1,0 +1,55 @@
+"""Plain MLP with flax `Dense(dtype=bfloat16)` semantics (port of
+nerf_emitter_tpu/fields/mlp.py).
+
+Each layer rounds its input and weight to bf16, takes the product with f32
+accumulation, rounds it to bf16 and adds the bias in bf16, as flax does;
+parameters stay f32 and the output is cast back to f32. The kernels'
+arithmetic differs (bias added in f32 before the bf16 rounding), which is
+why the reference compares the two paths at rtol 2e-2.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax's default Dense init (truncated lecun normal) for an
+    nn.Linear-layout (out, in) weight."""
+    std = 1.0 / math.sqrt(weight.shape[1]) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+
+
+class MLP(nn.Module):
+    """num_layers Linear layers (hidden_0 .. hidden_{L-2}, out) of width
+    layer_width with ReLU between them. Linear weights are (out, in)."""
+
+    def __init__(self, in_dim: int, out_dim: int, num_layers: int = 3, layer_width: int = 64,
+                 device=None):
+        super().__init__()
+        dims = [in_dim] + [layer_width] * (num_layers - 1) + [out_dim]
+        names = [f"hidden_{i}" for i in range(num_layers - 1)] + ["out"]
+        self.layer_names = names
+        for name, k, n in zip(names, dims[:-1], dims[1:]):
+            lin = nn.Linear(k, n, device=device)
+            lecun_normal_(lin.weight)
+            nn.init.zeros_(lin.bias)
+            self.add_module(name, lin)
+
+    def layers(self) -> list[nn.Linear]:
+        return [getattr(self, n) for n in self.layer_names]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bf = torch.bfloat16
+        h = x.to(bf)
+        layers = self.layers()
+        for i, lin in enumerate(layers):
+            prod = (h.float() @ lin.weight.to(bf).float().T).to(bf)
+            h = prod + lin.bias.to(bf)
+            if i < len(layers) - 1:
+                h = torch.relu(h)
+        return h.float()

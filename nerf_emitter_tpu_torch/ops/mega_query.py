@@ -1,0 +1,297 @@
+"""The two-kernel emitter query: K3 (`proposal_bins`) and K4
+(`field_composite`) (port of nerf_emitter_tpu/ops/mega_query.py, its
+`pipelined=False` configuration).
+
+  K3 (proposals): uniform spacing bins -> level-0 density MLP -> weights ->
+    inverse-CDF resample -> level-1 density MLP -> weights -> resample ->
+    final spacing bins (s2+1, N). csrc/proposal.cu.
+  K4 (field): bins -> positions -> base MLP + SH / appearance head ->
+    weights -> composite with the last-sample background -> rgb (3, N).
+    csrc/field_composite.cu.
+
+Only the (s2+1, N) spacing bins cross device memory between the two; the
+rays' o, d, near, far are the only per-ray inputs. Sampling is the staged
+query's deterministic serving mode (bin centres, no jitter).
+
+The inverse CDF: the TPU kernel evaluates it as a telescoped sum of ReLU
+ramps (exact up to ~1e-4 of the spacing range from cancellation); the port
+walks the CDF and interpolates within the segment, which is the same
+piecewise-linear function without that cancellation.
+
+Each kernel has a plain PyTorch twin (`_plain_proposal`,
+`_plain_field_composite`) that the wrappers use for CPU tensors only.
+Gradients of the query recompute through the staged query
+(ops/fused_field.py), whose kernels' own backward recomputes through
+their twins.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from .fused_field import (
+    _QueryConfig,
+    _contract_and_select,
+    _density_of,
+    _freq_rows_fmajor,
+    _freqs_of,
+    _kernel_mlp,
+    _mlp_params,
+    _rgb_of,
+    _sh4_rows,
+    make_fused_radiance_query,
+    named_params,
+    pad_rows,
+    permute_first,
+)
+from .samplers import spacing_piecewise as _spacing_pw
+from .samplers import spacing_piecewise_inv as _spacing_pw_inv
+
+TILE_RAYS = 128  # the query pads the ray count to whole 128-ray tiles
+_EPS = 1e-5  # sample_pdf eps
+_HIST_PAD = 0.01  # sample_pdf histogram_padding
+
+
+def _weights_rows(dens: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+    """(S, R) volume-rendering weights alpha * exp(-exclusive cumsum)."""
+    dd = dens * deltas
+    excl = torch.cumsum(torch.cat([torch.zeros_like(dd[:1]), dd[:-1]], dim=0), dim=0)
+    return (1.0 - torch.exp(-dd)) * torch.exp(-excl)
+
+
+def _resample_rows(weights: torch.Tensor, sbins: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Deterministic inverse-CDF resample (sample_pdf, key=None): (S, R)
+    weights and (S+1, R) spacing bins -> (n_out+1, R) spacing bins."""
+    s_in, r = weights.shape
+    w = weights + _HIST_PAD
+    w_sum = w.sum(dim=0, keepdim=True)
+    padding = (_EPS - w_sum).clamp(min=0.0)
+    pdf = (w + padding / s_in) / (w_sum + padding)
+    incl = torch.cumsum(pdf, dim=0)
+    cdf = torch.cat([torch.zeros_like(incl[:1]), incl[:-1].clamp(max=1.0), torch.ones_like(incl[:1])])
+    step = (1.0 - _EPS) / n_out
+    u = torch.tensor([i * step + 1.0 / (2.0 * (n_out + 1)) for i in range(n_out + 1)],
+                     dtype=torch.float32, device=weights.device)
+    cdf_r, sb_r = cdf.T.contiguous(), sbins.T.contiguous()  # (R, S+1)
+    u_r = u.expand(r, n_out + 1).contiguous()
+    b = torch.searchsorted(cdf_r[:, 1:s_in].contiguous(), u_r, right=True)  # segment in [0, S-1]
+    c0, c1 = cdf_r.gather(1, b), cdf_r.gather(1, b + 1)
+    sb0, sb1 = sb_r.gather(1, b), sb_r.gather(1, b + 1)
+    frac = ((u_r - c0) / (c1 - c0).clamp(min=_EPS)).clamp(0.0, 1.0)
+    return (sb0 + (sb1 - sb0) * frac).T
+
+
+def _density_rows(ebins, o, d, ws, bs, *, num_freqs, aabb_lo, aabb_inv_ext, disable_box, avg_density):
+    """(S+1, R) euclidean bins -> (S, R) densities at the midpoints."""
+    s, r = ebins.shape[0] - 1, ebins.shape[1]
+    mid = (ebins[:-1] + ebins[1:]) / 2.0
+    pos = (o[:, None, :] + d[:, None, :] * mid[None]).reshape(3, s * r)
+    x2, keep = _contract_and_select(pos, aabb_lo, aabb_inv_ext, disable_box)
+    raw = _kernel_mlp(_freq_rows_fmajor(x2, num_freqs).T, ws, bs)
+    return _density_of(raw[:, 0], keep, avg_density).reshape(s, r)
+
+
+# ---------------------------------------------------------------------------
+# K3: both proposal levels -> final spacing bins
+# ---------------------------------------------------------------------------
+
+
+def _plain_proposal(o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1, *, s0, s1, s2, freqs0, freqs1,
+                    aabb_lo, aabb_inv_ext, disable_box, avg_density):
+    """Twin of the proposal kernel: rays (3, N) / (1, N) -> (s2+1, N) bins.
+    First-layer weight rows are in f-major order (`permute_first`)."""
+    r = o_t.shape[1]
+    s_near, s_far = _spacing_pw(near_t), _spacing_pw(far_t)
+    kw = dict(aabb_lo=aabb_lo, aabb_inv_ext=aabb_inv_ext, disable_box=disable_box,
+              avg_density=avg_density)
+    sbins = (torch.arange(s0 + 1, device=o_t.device, dtype=torch.float32) / float(s0))[:, None]
+    sbins = sbins.expand(s0 + 1, r)
+    for ws, bs, freqs, n_out in ((ws0, bs0, freqs0, s1), (ws1, bs1, freqs1, s2)):
+        ebins = _spacing_pw_inv(sbins * (s_far - s_near) + s_near)
+        dens = _density_rows(ebins, o_t, d_t, ws, bs, num_freqs=freqs, **kw)
+        sbins = _resample_rows(_weights_rows(dens, ebins[1:] - ebins[:-1]), sbins, n_out)
+    return sbins
+
+
+def proposal_bins(o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1, *, s0, s1, s2, freqs0, freqs1,
+                  aabb_lo, aabb_inv_ext, disable_box, avg_density):
+    """Kernel K3: o_t, d_t (3, N), near_t, far_t (1, N) -> spacing bins
+    (s2+1, N). Weights are (in, out) with f-major first-layer rows. The
+    twin serves CPU tensors; a CUDA tensor launches the kernel."""
+    kw = dict(s0=s0, s1=s1, s2=s2, freqs0=freqs0, freqs1=freqs1, aabb_lo=aabb_lo,
+              aabb_inv_ext=aabb_inv_ext, disable_box=disable_box, avg_density=avg_density)
+    if o_t.device.type == "cpu":
+        return _plain_proposal(o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1, **kw)
+    n = o_t.shape[1]
+    for name, t, rows in (("o_t", o_t, 3), ("d_t", d_t, 3), ("near_t", near_t, 1), ("far_t", far_t, 1)):
+        kernels.check_tensor(t, name, ndim=2, rows=rows, cols=n)
+    mlp0 = kernels.PackedMlp(ws0, bs0, device=o_t.device)
+    mlp1 = kernels.PackedMlp(ws1, bs1, device=o_t.device)
+    out = torch.empty(s2 + 1, n, dtype=torch.float32, device=o_t.device)
+    kernels.launch(
+        "proposal",
+        kernels.ptr(o_t), kernels.ptr(d_t), kernels.ptr(near_t), kernels.ptr(far_t), kernels.i64(n),
+        *mlp0.args(), *mlp1.args(),
+        kernels.box_consts(aabb_lo, aabb_inv_ext, disable_box, avg_density),
+        kernels.i32(freqs0), kernels.i32(freqs1), kernels.i32(s0), kernels.i32(s1), kernels.i32(s2),
+        kernels.i32(max(mlp0.ld, mlp1.ld)), kernels.ptr(out),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: field + compositing
+# ---------------------------------------------------------------------------
+
+
+def _plain_field_composite(sbins, o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs, *, s2, freqs,
+                           aabb_lo, aabb_inv_ext, disable_box, avg_density, hdr, rgb_bias,
+                           with_aux=False):
+    """Twin of the field/composite kernel: (s2+1, N) bins -> rgb (3, N),
+    and with `with_aux` also (acc, rgb_last) as (4, N)."""
+    r = o_t.shape[1]
+    s_near, s_far = _spacing_pw(near_t), _spacing_pw(far_t)
+    ebins = _spacing_pw_inv(sbins * (s_far - s_near) + s_near)
+    mid = (ebins[:-1] + ebins[1:]) / 2.0
+    pos = (o_t[:, None, :] + d_t[:, None, :] * mid[None]).reshape(3, s2 * r)
+    x2, keep = _contract_and_select(pos, aabb_lo, aabb_inv_ext, disable_box)
+    base = _kernel_mlp(_freq_rows_fmajor(x2, freqs).T, bws, bbs)  # (s2 R, 16)
+    dens = _density_of(base[:, 0], keep, avg_density).reshape(s2, r)
+    dirs = d_t[:, None, :].expand(3, s2, r).reshape(3, s2 * r)
+    h_in = torch.cat([_sh4_rows(dirs).T, base[:, 1:], emb[None, :].expand(s2 * r, -1)], dim=1)
+    rgb = _rgb_of(_kernel_mlp(h_in, hws, hbs), hdr, rgb_bias).reshape(s2, r, 3)
+    w = _weights_rows(dens, ebins[1:] - ebins[:-1])
+    comp = torch.sum(w[..., None] * rgb, dim=0)  # (R, 3)
+    acc = torch.sum(w, dim=0)
+    out = (comp + rgb[-1] * (1.0 - acc)[:, None]).T
+    return (out, torch.cat([acc[None], rgb[-1].T])) if with_aux else out
+
+
+def field_composite(sbins, o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs, *, s2, freqs,
+                    aabb_lo, aabb_inv_ext, disable_box, avg_density, hdr, rgb_bias, with_aux=False):
+    """Kernel K4: spacing bins (s2+1, N), rays (3, N) / (1, N), one
+    appearance vector (E,) -> rgb (3, N). Weights are (in, out) with
+    f-major first-layer rows in the base MLP. `with_aux` also returns each
+    ray's accumulation and last-sample colour (4, N): rgb minus
+    rgb_last (1 - acc) is the composite without its background term."""
+    kw = dict(s2=s2, freqs=freqs, aabb_lo=aabb_lo, aabb_inv_ext=aabb_inv_ext,
+              disable_box=disable_box, avg_density=avg_density, hdr=hdr, rgb_bias=rgb_bias,
+              with_aux=with_aux)
+    if o_t.device.type == "cpu":
+        return _plain_field_composite(sbins, o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs, **kw)
+    n = o_t.shape[1]
+    kernels.check_tensor(sbins, "sbins", ndim=2, rows=s2 + 1, cols=n)
+    for name, t, rows in (("o_t", o_t, 3), ("d_t", d_t, 3), ("near_t", near_t, 1), ("far_t", far_t, 1)):
+        kernels.check_tensor(t, name, ndim=2, rows=rows, cols=n)
+    kernels.check_tensor(emb, "emb", ndim=1)
+    base = kernels.PackedMlp(bws, bbs, device=o_t.device)
+    head = kernels.PackedMlp(hws, hbs, device=o_t.device)
+    if base.n[-1] != 16 or head.n[-1] != 3 or head.k_real[0] != 31 + emb.shape[0]:
+        raise ValueError("field kernel takes a 16-wide base output (density + 15 geo) and a "
+                         "3-wide head over [sh16, geo15, emb]")
+    out = torch.empty(3, n, dtype=torch.float32, device=o_t.device)
+    aux = torch.empty(4, n, dtype=torch.float32, device=o_t.device) if with_aux else None
+    kernels.launch(
+        "field_composite",
+        kernels.ptr(sbins), kernels.ptr(o_t), kernels.ptr(d_t), kernels.ptr(near_t),
+        kernels.ptr(far_t), kernels.ptr(emb), kernels.i32(emb.shape[0]), kernels.i64(n),
+        *base.args(), *head.args(),
+        kernels.box_consts(aabb_lo, aabb_inv_ext, disable_box, avg_density),
+        kernels.i32(freqs), kernels.i32(s2), kernels.i32(max(base.ld, head.ld)),
+        kernels.i32(int(hdr)), kernels.f32(rgb_bias), kernels.ptr(out),
+        kernels.ptr(aux) if with_aux else None,
+    )
+    return (out, aux) if with_aux else out
+
+
+# ---------------------------------------------------------------------------
+# builder
+# ---------------------------------------------------------------------------
+
+
+class _MegaQuery(torch.autograd.Function):
+    """Forward through K3 + K4; backward recomputes through the staged
+    query (the reference's custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, run, origins, directions, nears, fars, *params):
+        ctx.run = run
+        ctx.save_for_backward(origins, directions, nears, fars, *params)
+        return run.forward(dict(zip(run.names, params)), origins, directions, nears, fars)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        o, d, near, far, *params = leaves
+        with torch.enable_grad():
+            rays = ctx.run.rays.replace(origins=o, directions=d, nears=near, fars=far)
+            out = ctx.run.staged(dict(zip(ctx.run.names, params)), rays, ctx.run.camera_index)
+        wanted = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
+        return (None, *[next(got) if t.requires_grad else None for t in leaves])
+
+
+class _MegaRun:
+    """One query call's state, handed to the autograd Function."""
+
+    def __init__(self, forward, staged, names, rays, camera_index):
+        self.forward, self.staged, self.names = forward, staged, names
+        self.rays, self.camera_index = rays, camera_index
+
+
+def make_mega_radiance_query(model, *, disable_box=None, pipelined=False, device=None):
+    """The kernel query on K3 + K4, with the contract of
+    `make_fused_radiance_query`: query(params_or_model, rays,
+    camera_index=None) -> rgb (n, 3), one camera for all rays.
+
+    pipelined=True (the reference's default single pipelined kernel, K5)
+    is not ported yet and raises. `device=None` means CUDA."""
+    if pipelined:
+        raise NotImplementedError(
+            "K5 (the pipelined single megakernel, mega_query.py:318-554) is not ported "
+            "yet; see ROADMAP.md Queue 2. Use pipelined=False."
+        )
+    cfg = _QueryConfig(model, disable_box, device)
+    s0, s1 = cfg.n_prop
+    s2 = cfg.n_nerf
+    staged = make_fused_radiance_query(model, disable_box=disable_box, device=device)
+    kw = dict(aabb_lo=cfg.aabb_lo, aabb_inv_ext=cfg.aabb_inv_ext, disable_box=cfg.dbox,
+              avg_density=1.0)
+
+    def make_forward(camera_index):
+        def forward(p, origins, directions, nears, fars):
+            n = origins.shape[0]
+            n_pad = -(-n // TILE_RAYS) * TILE_RAYS
+            o_t = pad_rows(origins, n_pad, 0.0)
+            d_t = pad_rows(directions, n_pad, 1.0)
+            near_t = pad_rows(nears, n_pad, 0.1)
+            far_t = pad_rows(fars, n_pad, 0.2)
+            ws0, bs0 = _mlp_params(p, "proposal_0.mlp")
+            ws1, bs1 = _mlp_params(p, "proposal_1.mlp")
+            f0, f1 = _freqs_of(ws0[0]), _freqs_of(ws1[0])
+            sbins = proposal_bins(
+                o_t, d_t, near_t, far_t, permute_first(ws0, f0), bs0, permute_first(ws1, f1), bs1,
+                s0=s0, s1=s1, s2=s2, freqs0=f0, freqs1=f1, **kw,
+            )
+            bws, bbs = _mlp_params(p, "field.base_mlp")
+            hws, hbs = _mlp_params(p, "field.head_mlp")
+            ff = _freqs_of(bws[0])
+            emb = cfg.embedding(p, camera_index, origins.device).contiguous()
+            rgb_t = field_composite(
+                sbins, o_t, d_t, near_t, far_t, emb, permute_first(bws, ff), bbs, hws, hbs,
+                s2=s2, freqs=ff, hdr=cfg.hdr, rgb_bias=cfg.rgb_bias, **kw,
+            )
+            return rgb_t[:, :n].T.contiguous()
+        return forward
+
+    def query(params_or_model, rays, camera_index=None):
+        p = named_params(params_or_model)
+        names = [k for k in p if k.startswith(("proposal_0.", "proposal_1.", "field."))]
+        run = _MegaRun(make_forward(camera_index), staged, names, rays, camera_index)
+        return _MegaQuery.apply(run, rays.origins, rays.directions, rays.nears, rays.fars,
+                                *[p[k] for k in names])
+
+    return query
