@@ -3,13 +3,14 @@
     python3 chip_smoke.py [--seed 0]
 
 Builds the port's kernels from nerf_emitter_tpu_torch/csrc with nvcc, holds
-each kernel against its plain PyTorch twin at the emitter query's shapes,
+each kernel against its plain PyTorch twin at the shapes its path gives it,
 answers 2^16 escaped emitter rays at the full width of the sdf-nerfacto
-`freq` model (random weights from --seed) through the kernel query, checks
-the answer against the model's plain forward, and runs a backward pass
-through the query. Every phase prints one JSON line; any failure raises
-and the script exits non-zero. The last line is
-{"ok": true, "device": {...}}.
+`freq` model (random weights from --seed) through the default kernel query
+(K5), and through the two-kernel query (K3 + K4), checks the answer against
+the model's plain forward, runs a backward pass through the query, and runs
+the three profiling entry points at their own shapes. Every phase prints
+one JSON line; any failure raises and the script exits non-zero. The last
+line is {"ok": true, "device": {...}}.
 
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -72,7 +74,10 @@ def close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float) -> dict:
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    """The larger of the operations' time (bf16 tensor-core flops at their
+    peak) and the bytes' time."""
+    t_ops = flops / H100_BF16_FLOPS
+    t_bytes = nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -105,10 +110,16 @@ def main() -> int:
     from nerf_emitter_tpu_torch.models.nerfacto import NerfactoModel
     from nerf_emitter_tpu_torch.ops import fused_field as ff
     from nerf_emitter_tpu_torch.ops import mega_query as mq
+    from nerf_emitter_tpu_torch.ops import resample as rs
     from nerf_emitter_tpu_torch.ops.colliders import aabb_far_intersect_collider
     from nerf_emitter_tpu_torch.pipelines.nerf_emitter import make_nerf_emitter_fn
+    from nerf_emitter_tpu_torch.scripts import profile_kernel_a, profile_query, profile_resample
+    from nerf_emitter_tpu_torch.scripts.profiling import ProfileSetup, device_trace
     from nerf_emitter_tpu_torch.utils.coords import unit_to_world
 
+    # the run measures the query's defaults
+    for knob in ("NERF_EMITTER_MEGA_PIPELINED", "NERF_EMITTER_MEGA_MXU_CHUNK"):
+        os.environ.pop(knob, None)
     # f32 comparisons on the card run in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -170,10 +181,11 @@ def main() -> int:
     # the bins near the scene-box face are wide at far = 1e3, and a shift
     # of a bin edge by the samplers' ~1e-4 of the spacing range can move
     # a midpoint across the face and flip its keep mask. So at far = 1e3
-    # the main path's answer is held through its two kernels: it equals
-    # K4 on K3's bins bit for bit, K3's bins agree with its twin (atol
-    # 2e-3), and on those bins K4's foreground and accumulation agree with
-    # its twin within 1% and its whole answer within 10%. At far = 4,
+    # the main path's answer (K5) is held through K3 and K4: it equals K4
+    # on K3's bins (atol 1e-6), which equals the two-kernel query's answer
+    # bit for bit; K3's bins agree with its twin (atol 2e-3), and on those
+    # bins K4's foreground and accumulation agree with its twin within 1%
+    # and its whole answer within 10% (so do K5's with its own twin). At far = 4,
     # which keeps the last sample near the scene, the query is held to the
     # model forward within 3%; at far = 1e3 that comparison is reported.
     x_unit, d = emitter_rays(n, args.seed, dev)
@@ -185,20 +197,21 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(args.seed + 1)
 
     @torch.no_grad()
-    def kernel_phase(name, replaces, source, run, twin, compare, flops, nbytes, reps):
+    def kernel_phase(name, replaces, source, run, twin, compare, flops, nbytes, reps, **extra):
         out_k, out_t = run(), twin()
         torch.cuda.synchronize()
-        checks = compare(out_k, out_t)
+        checks = compare(out_k, out_t)  # a check with held=False is reported only
+        held = [c for c in checks.values() if c.get("held", True)]
         del out_t
         ms = cuda_ms(run, reps)
         plain_ms = cuda_ms(twin, 1)
         b_ms, b_by = bound_ms(flops, nbytes)
         res = dict(name=name, route="cuda", source=source, replaces=replaces, checks=checks,
-                   max_abs_err=max(c["max_abs_err"] for c in checks.values()), ms=ms,
+                   max_abs_err=max(c["max_abs_err"] for c in held), ms=ms,
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                   flops=flops, bytes=nbytes)
+                   flops=flops, bytes=nbytes, **extra)
         emit(dict(phase="kernel", **res))
-        if not all(c["within"] for c in checks.values()):
+        if not all(c["within"] for c in held):
             raise AssertionError(f"{name}: kernel disagrees with its twin: {checks}")
         results[name] = res
         del out_k
@@ -246,39 +259,41 @@ def main() -> int:
     # K3 on the main path's rays; the f-major first-layer rows the query uses
     k3 = dict(s0=s0, s1=s1, s2=s2, freqs0=4, freqs1=6, **cfg)
     w0p, w1p = ff.permute_first(ws0, 4), ff.permute_first(ws1, 6)
+    props = (w0p, bs0, w1p, bs1)
+    k3_flops = 2.0 * n * (s0 * mlp_macs(ws0) + s1 * mlp_macs(ws1))
     kernel_phase(
         "proposal", "nerf_emitter_tpu/ops/mega_query.py:711",
         "nerf_emitter_tpu_torch/csrc/proposal.cu",
-        lambda: mq.proposal_bins(o_t, d_t, near_t, far_t, w0p, bs0, w1p, bs1, **k3),
-        lambda: mq._plain_proposal(o_t, d_t, near_t, far_t, w0p, bs0, w1p, bs1, **k3),
+        lambda: mq.proposal_bins(o_t, d_t, near_t, far_t, *props, **k3),
+        lambda: mq._plain_proposal(o_t, d_t, near_t, far_t, *props, **k3),
         # spacing bins in [0, 1]: density roundoff moves the CDF by ~1e-4
         lambda a, b: {"sbins": close(a, b, rtol=0.0, atol=2e-3)},
-        2.0 * n * (s0 * mlp_macs(ws0) + s1 * mlp_macs(ws1)), n * (8 + s2 + 1) * 4.0, reps=3,
+        k3_flops, n * (8 + s2 + 1) * 4.0, reps=3,
     )
 
     # K4 on the bins K3 gives these rays
     bwp = ff.permute_first(bws, 10)
+    field = (bwp, bbs, hws, hbs)
     k4 = dict(s2=s2, freqs=10, hdr=True, rgb_bias=0.0, **cfg)
+    k4_flops = 2.0 * n * s2 * (mlp_macs(bws) + mlp_macs(hws))
     with torch.no_grad():
-        sbins = mq.proposal_bins(o_t, d_t, near_t, far_t, w0p, bs0, w1p, bs1, **k3)
-        sbins4 = mq.proposal_bins(*rows4, w0p, bs0, w1p, bs1, **k3)
+        sbins = mq.proposal_bins(o_t, d_t, near_t, far_t, *props, **k3)
+        sbins4 = mq.proposal_bins(*rows4, *props, **k3)
 
     def ulp_shift(bins, rows, out):
         """Largest relative move of the kernel's answer when every spacing
         bin moves up by one ulp: how well posed the comparison is."""
         up = torch.nextafter(bins, torch.full_like(bins, 2.0))
-        moved = mq.field_composite(up, *rows, emb, bwp, bbs, hws, hbs, **k4)
+        moved = mq.field_composite(up, *rows, emb, *field, **k4)
         return float(((moved - out).abs() / out.abs().clamp(min=1e-3)).max())
 
     def k4_checks(a, b):
         with torch.no_grad():
-            a4 = mq.field_composite(sbins4, *rows4, emb, bwp, bbs, hws, hbs, **k4)
-            b4 = mq._plain_field_composite(sbins4, *rows4, emb, bwp, bbs, hws, hbs, **k4)
+            a4 = mq.field_composite(sbins4, *rows4, emb, *field, **k4)
+            b4 = mq._plain_field_composite(sbins4, *rows4, emb, *field, **k4)
             rows = (o_t, d_t, near_t, far_t)
-            fg_a, acc_a = split(*mq.field_composite(sbins, *rows, emb, bwp, bbs, hws, hbs, **k4,
-                                                    with_aux=True))
-            fg_b, acc_b = split(*mq._plain_field_composite(sbins, *rows, emb, bwp, bbs, hws, hbs, **k4,
-                                                           with_aux=True))
+            fg_a, acc_a = split(*mq.field_composite(sbins, *rows, emb, *field, **k4, with_aux=True))
+            fg_b, acc_b = split(*mq._plain_field_composite(sbins, *rows, emb, *field, **k4, with_aux=True))
             return {"rgb_far1e3": close(a, b, rtol=1e-1, atol=1e-3)
                     | {"one_ulp_bin_shift_rel": ulp_shift(sbins, rows, a)},
                     "foreground_far1e3": close(fg_a, fg_b, rtol=1e-2, atol=1e-3),
@@ -289,14 +304,93 @@ def main() -> int:
     kernel_phase(
         "field_composite", "nerf_emitter_tpu/ops/mega_query.py:731",
         "nerf_emitter_tpu_torch/csrc/field_composite.cu",
-        lambda: mq.field_composite(sbins, o_t, d_t, near_t, far_t, emb, bwp, bbs, hws, hbs, **k4),
-        lambda: mq._plain_field_composite(sbins, o_t, d_t, near_t, far_t, emb, bwp, bbs, hws, hbs, **k4),
-        k4_checks,
-        2.0 * n * s2 * (mlp_macs(bws) + mlp_macs(hws)), n * (s2 + 1 + 8 + 3) * 4.0, reps=3,
+        lambda: mq.field_composite(sbins, o_t, d_t, near_t, far_t, emb, *field, **k4),
+        lambda: mq._plain_field_composite(sbins, o_t, d_t, near_t, far_t, emb, *field, **k4),
+        k4_checks, k4_flops, n * (s2 + 1 + 8 + 3) * 4.0, reps=3,
     )
-    del sbins4
 
-    # ---- phase 3: the main path, 2^16 escaped rays through make_nerf_emitter_fn
+    # K5 on the main path's rays. Against K4 on K3's bins at the JAX
+    # suite's bar for the pipelined kernel against the two-kernel path
+    # (atol 1e-6, tests/test_fields.py:337), at far = 1e3 and far = 4; with
+    # mxu_chunk = 3 against mxu_chunk = 1 at the same bar; against its
+    # chained twin at the query's bar (rtol 3e-2, atol 1e-3) at far = 4, and
+    # at far = 1e3 through the aux split (1%). The chained twin's own bins
+    # differ from K3's by hundreds of ulps (the line reports the gap), and
+    # one ulp of the background sample's bins moves the answer by ~35% (K4
+    # line), so the whole answer against the chained twin is reported, with
+    # two held checks that locate its disagreement in the background colour
+    # rgb_last: every value outside the 10% bar has its foreground and
+    # accumulation within 1%, and with rgb_last taken from K5 on both sides
+    # the whole answer is within 10%. At far = 1e3 the whole answer is also
+    # held within 10% to the field twin on K3's bins, as K4 is.
+    k5 = dict(k3, freqs=10, hdr=True, rgb_bias=0.0)
+    rows = (o_t, d_t, near_t, far_t)
+    with torch.no_grad():
+        k34 = mq.field_composite(sbins, *rows, emb, *field, **k4)
+        k34_4 = mq.field_composite(sbins4, *rows4, emb, *field, **k4)
+        gap = (mq._plain_proposal(*rows, *props, **k3) - sbins).abs()
+        last_ulp = torch.nextafter(sbins[-2:], torch.full_like(sbins[-2:], 2.0)) - sbins[-2:]
+        bins_gap = dict(max_abs=float(gap.max()), rays_bitwise=int((gap == 0).all(dim=0).sum()),
+                        rays=n, last_two_bins_max_ulps=float((gap[-2:] / last_ulp).max()))
+        del gap, last_ulp
+
+    def same(a, b):
+        return close(a, b, rtol=0.0, atol=1e-6) | {"bitwise": bool(torch.equal(a, b))}
+
+    def background_only(a, b, fg_a, fg_b, acc_a, acc_b, aux_a, aux_b):
+        """Whether every value of a outside b's 10% bar has its foreground
+        and its ray's accumulation within 1%: its disagreement is then in
+        rgb_last (1 - acc). Reports how far rgb_last and (1 - acc) go."""
+        outside = (a - b).abs() > 1e-3 + 1e-1 * b.abs()
+        fg_ok = (fg_a - fg_b).abs() <= 1e-3 + 1e-2 * fg_b.abs()
+        acc_ok = ((acc_a - acc_b).abs() <= 1e-3 + 1e-2 * acc_b.abs())[None].expand_as(a)
+        explained = outside & fg_ok & acc_ok
+        last_rel = ((aux_a[1:] - aux_b[1:]).abs() / aux_b[1:].abs().clamp(min=1e-3))[outside]
+        one_minus_acc = (1.0 - acc_b).expand_as(a)[outside]
+        fg_err = (fg_a - fg_b).abs()[outside]
+        span = (lambda t: [float(t.min()), float(t.max())] if t.numel() else None)
+        return dict(outside=int(outside.sum()), outside_explained=int(explained.sum()),
+                    max_abs_err=float(fg_err.max()) if fg_err.numel() else 0.0,
+                    outside_rgb_last_rel_range=span(last_rel),
+                    outside_one_minus_acc_range=span(one_minus_acc),
+                    within=bool(torch.equal(explained, outside)))
+
+    def k5_checks(a, b):
+        with torch.no_grad():
+            a4 = mq.mega_pipeline(*rows4, emb, *props, *field, **k5)
+            b4 = mq._plain_mega_pipeline(*rows4, emb, *props, *field, **k5)
+            aux_a = mq.mega_pipeline(*rows, emb, *props, *field, **k5, with_aux=True)[1]
+            aux_b = mq._plain_mega_pipeline(*rows, emb, *props, *field, **k5, with_aux=True)[1]
+            chunk3 = mq.mega_pipeline(*rows, emb, *props, *field, **k5, mxu_chunk=3)
+            on_k3_bins = mq._plain_field_composite(sbins, *rows, emb, *field, **k4)
+        (fg_a, acc_a), (fg_b, acc_b) = split(a, aux_a), split(b, aux_b)
+        return {"vs_k3_k4_far1e3": same(a, k34), "vs_k3_k4_far4": same(a4, k34_4),
+                "mxu_chunk3_vs_1": same(chunk3, a),
+                "twin_far4": close(a4, b4, rtol=3e-2, atol=1e-3),
+                "twin_foreground_far1e3": close(fg_a, fg_b, rtol=1e-2, atol=1e-3),
+                "twin_acc_far1e3": close(acc_a, acc_b, rtol=1e-2, atol=1e-3),
+                "field_twin_on_k3_bins_rgb_far1e3": close(a, on_k3_bins, rtol=1e-1, atol=1e-3),
+                "twin_rgb_far1e3": close(a, b, rtol=1e-1, atol=1e-3) | {"held": False, "bins_gap": bins_gap},
+                "twin_rgb_far1e3_outside_bar_is_background":
+                    background_only(a, b, fg_a, fg_b, acc_a, acc_b, aux_a, aux_b),
+                "twin_rgb_far1e3_shared_rgb_last":
+                    close(a, fg_b + aux_a[1:] * (1.0 - acc_b), rtol=1e-1, atol=1e-3)}
+
+    packed = [kernels.PackedMlp(w, b, device=w[0].device)
+              for w, b in ((w0p, bs0), (w1p, bs1), (bwp, bbs), (hws, hbs))]
+    per_sm, sms = kernels.mega_pipeline_occupancy(mq.mega_ld(*packed), s0, s1, s2)
+    del packed
+    kernel_phase(
+        "mega_pipeline", "nerf_emitter_tpu/ops/mega_query.py:677",
+        "nerf_emitter_tpu_torch/csrc/mega_pipeline.cu",
+        lambda: mq.mega_pipeline(*rows, emb, *props, *field, **k5),
+        lambda: mq._plain_mega_pipeline(*rows, emb, *props, *field, **k5),
+        k5_checks, k3_flops + k4_flops, n * (8 + 3) * 4.0, reps=3, blocks_per_sm=per_sm, sms=sms,
+    )
+    del sbins4, k34_4
+
+    # ---- phase 3: the main path, 2^16 escaped rays through
+    # make_nerf_emitter_fn, which builds the default query: K5
     emitter = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX)(camera_index=0)
     kernels.reset_launches()
     with torch.no_grad():
@@ -305,10 +399,28 @@ def main() -> int:
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
     fwd_launches = dict(kernels.launches)
-    if fwd_launches.get("proposal", 0) < 1 or fwd_launches.get("field_composite", 0) < 1:
-        raise AssertionError(f"the main path did not run K3 and K4: {fwd_launches}")
+    if (fwd_launches.get("mega_pipeline", 0) < 1 or fwd_launches.get("proposal", 0)
+            or fwd_launches.get("field_composite", 0)):
+        raise AssertionError(f"the main path did not run K5 alone: {fwd_launches}")
     if rgb.shape != (n, 3) or not bool(torch.isfinite(rgb).all()):
         raise AssertionError("emitter output is not finite (n, 3)")
+
+    # The same rays through the two-kernel query (K3 + K4), which the
+    # NERF_EMITTER_MEGA_PIPELINED=0 switch selects when the query is built.
+    os.environ["NERF_EMITTER_MEGA_PIPELINED"] = "0"
+    try:
+        two_emitter = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX)(camera_index=0)
+    finally:
+        del os.environ["NERF_EMITTER_MEGA_PIPELINED"]
+    kernels.reset_launches()
+    with torch.no_grad():
+        rgb_two = two_emitter(x_unit, d)
+        torch.cuda.synchronize()
+    two_launches = dict(kernels.launches)
+    if (two_launches.get("proposal", 0) < 1 or two_launches.get("field_composite", 0) < 1
+            or two_launches.get("mega_pipeline", 0)):
+        raise AssertionError(f"the two-kernel query did not run K3 and K4 alone: {two_launches}")
+    pipelined_vs_two = same(rgb, rgb_two)
 
     # the same rays through the model's plain forward on the card
     plain = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, use_fused=False)(camera_index=0)
@@ -317,14 +429,14 @@ def main() -> int:
     main_check = close(rgb[:nc], ref, rtol=3e-2, atol=1e-3)
 
     # K4 on the bins K3 gave these rays in phase 2 (held there against
-    # both twins) reproduces the main path's answer bit for bit. With it
-    # come each ray's accumulation and last-sample colour, which split the
-    # answer against the model forward with a black background (reported).
+    # both twins) reproduces the two-kernel query's answer bit for bit.
+    # With it come each ray's accumulation and last-sample colour, which
+    # split the answer against the model forward with a black background
+    # (reported).
     with torch.no_grad():
-        rgb_t, aux = mq.field_composite(sbins, o_t, d_t, near_t, far_t, emb, bwp, bbs, hws, hbs, **k4,
-                                        with_aux=True)
-        if not torch.equal(rgb_t.T, rgb):
-            raise AssertionError("K4 on K3's bins does not reproduce the main path's answer")
+        rgb_t, aux = mq.field_composite(sbins, *rows, emb, *field, **k4, with_aux=True)
+        if not torch.equal(rgb_t.T, rgb_two):
+            raise AssertionError("K4 on K3's bins does not reproduce the two-kernel query's answer")
         fg, acc = split(rgb_t[:, :nc], aux[:, :nc])
         black = copy.copy(model)
         black.background_color = "black"
@@ -332,7 +444,7 @@ def main() -> int:
                        disable_aabb_on=True)
     fg_check = {"foreground": close(fg.T, ref_fg["rgb"], rtol=3e-2, atol=1e-3),
                 "acc": close(acc, ref_fg["accumulation"][:, 0], rtol=3e-2, atol=1e-3)}
-    del sbins, rgb_t, aux
+    del sbins, rgb_t, aux, k34
     with torch.no_grad():
         near_k = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, far=4.0)(camera_index=0)(x_unit[:nc], d[:nc])
         near_p = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, far=4.0, use_fused=False)(
@@ -341,12 +453,22 @@ def main() -> int:
 
     with torch.no_grad():
         ms = cuda_ms(lambda: emitter(x_unit, d), 5)
+        ms_two = cuda_ms(lambda: two_emitter(x_unit, d), 5)
+    # where each query's time goes: the device timeline of 3 calls
+    trace = {"query": device_trace(lambda: emitter(x_unit, d)),
+             "two_kernel_query": device_trace(lambda: two_emitter(x_unit, d))}
     emit(dict(phase="main_path", rays=n, samples=[s0, s1, s2], ms_per_query=ms,
-              rays_per_s=n / (ms * 1e-3), first_call_s=first_s, launches=fwd_launches,
+              rays_per_s=n / (ms * 1e-3), ms_per_query_two_kernel=ms_two,
+              rays_per_s_two_kernel=n / (ms_two * 1e-3), first_call_s=first_s, launches=fwd_launches,
+              launches_two_kernel=two_launches, pipelined_vs_two_kernel=pipelined_vs_two,
               vs_model_far1e3=main_check, vs_model_far1e3_split=fg_check, vs_model_far4=far4_check,
-              rgb_mean=float(rgb.mean()), peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30))
+              rgb_mean=float(rgb.mean()), peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+              trace=trace))
     if not far4_check["within"]:
         raise AssertionError(f"kernel query disagrees with the model forward: {far4_check}")
+    if not pipelined_vs_two["within"]:
+        raise AssertionError(f"K5 query disagrees with the two-kernel query: {pipelined_vs_two}")
+    del rgb, rgb_two
 
     # ---- phase 4: backward through the emitter w.r.t. the ray origins
     xg = x_unit[:nc].clone().requires_grad_()
@@ -362,20 +484,107 @@ def main() -> int:
         raise AssertionError(f"the backward did not run K1 and K2: {bwd_launches}")
     if not grad_ok:
         raise AssertionError("non-finite or zero gradients")
+    del emitter, two_emitter, plain, xg, out
+    torch.cuda.empty_cache()
 
-    # ---- phase 5: the kernels line. K3 and K4 carry the query (phase 3),
-    # K1 and K2 its backward (phase 4); each reports its launches in the
-    # run of its own path.
-    path_of = {"proposal": "query", "field_composite": "query",
-               "fused_density": "backward", "fused_field": "backward"}
-    counts = {"query": fwd_launches, "backward": bwd_launches}
+    # ---- phase 5: the profiling kernels against their twins. K3's bins
+    # (P1's kernel A, P2's modes) are held at K3's bar on the main path's
+    # rays, the shapes the profiling scripts use too. On the scripts' own
+    # rays (from the origin, far 6, no carve-out) the comparison is
+    # reported with the number of rays over the bar: there a few rays have
+    # a level-1 sample midpoint on the scene-box face, where a rounding
+    # difference in the level-0 densities flips the sample's keep mask and
+    # moves the ray's CDF by a whole sample's weight; the modes without
+    # resampled positions agree to ~1e-7 there. P1's kernel B runs on the
+    # script's random bins, P3 on the resample script's weights.
+    setup = ProfileSetup(dev, seed=args.seed)
+    pn = setup.rows[0].shape[1]
+    p_k4_flops = 2.0 * pn * s2 * (mlp_macs(setup.field[0]) + mlp_macs(setup.field[2]))
+
+    def at_script_rays(kernel, twin):
+        with torch.no_grad():
+            a, b = kernel(*setup.rows, *setup.props, **setup.k3), twin(*setup.rows, *setup.props, **setup.k3)
+        return close(a, b, rtol=0.0, atol=2e-3) | {
+            "held": False, "rays_over_bar": int(((a - b).abs() > 2e-3).any(dim=0).sum()), "rays": pn}
+
+    for name, replaces, kernel, twin in [
+        ("profile_query.kernel_a", "scripts/profile_query.py:117", mq.proposal_bins, mq._plain_proposal),
+    ] + [(f"proposal_variant[{m}]", "scripts/profile_kernel_a.py:148",
+          functools.partial(mq.proposal_variant, mode=m), functools.partial(mq._plain_proposal, mode=m))
+         for m in mq.PROPOSAL_MODES]:
+        kernel_phase(
+            name, replaces, "nerf_emitter_tpu_torch/csrc/proposal.cu",
+            lambda k=kernel: k(*rows, *props, **k3), lambda t=twin: t(*rows, *props, **k3),
+            lambda a, b, k=kernel, t=twin: {"sbins": close(a, b, rtol=0.0, atol=2e-3),
+                                            "sbins_script_rays": at_script_rays(k, t)},
+            0.0 if name.endswith("[resample-only]") else k3_flops, n * (8 + s2 + 1) * 4.0, reps=3,
+        )
+    kernel_phase(
+        "profile_query.kernel_b", "scripts/profile_query.py:153",
+        "nerf_emitter_tpu_torch/csrc/field_composite.cu",
+        lambda: profile_query.kernel_b(setup),
+        lambda: mq._plain_field_composite(setup.random_bins, *setup.rows, setup.emb, *setup.field,
+                                          **setup.k4),
+        # random bins at far 6 are well conditioned: K4's far = 4 bar
+        lambda a, b: {"rgb": close(a, b, rtol=1e-2, atol=1e-3)},
+        p_k4_flops, pn * (s2 + 1 + 8 + 3) * 4.0, reps=3,
+    )
+    rs_in = profile_resample.inputs(dev, seed=args.seed)
+    r0, r1, r2 = profile_resample.S0, profile_resample.S1, profile_resample.S2
+    rn = rs_in[0].shape[1]
+    with torch.no_grad():
+        # the ramp's f32 cancellation is ~1e-4 of the spacing range
+        walk_vs_ramp = close(rs.resample(*rs_in, n_out=r2, form="walk"),
+                             rs.resample(*rs_in, n_out=r2, form="ramp"), rtol=0.0, atol=2e-3)
+    for form in rs.FORMS:
+        kernel_phase(
+            f"resample[{form}]", "scripts/profile_resample.py:167",
+            "nerf_emitter_tpu_torch/csrc/resample.cu",
+            lambda f=form: rs.resample(*rs_in, n_out=r2, form=f),
+            lambda f=form: rs._plain_resample(*rs_in, n_out=r2, form=f),
+            # f32 sums in other orders, each within ~1e-4 of exact
+            lambda a, b: {"vs_twin": close(a, b, rtol=0.0, atol=2e-4), "walk_vs_ramp": walk_vs_ramp},
+            # bound: the function's bytes, for both forms; the ramp's 4 f32
+            # operations per (output, segment) cell are its algorithm's cost
+            0.0, rn * 4.0 * (r0 + r0 + 1 + r1 + r2 + 1), reps=3,
+            **({"ramp_cell_f32_ops": 4.0 * rn * ((r1 + 1) * (r0 + 1) + (r2 + 1) * (r1 + 1))}
+               if form == "ramp" else {}),
+        )
+
+    # ---- phase 6: the three profiling entry points, each a path of its own
+    script_launches = {}
+    for name, mod, inputs in (("profile_query", profile_query, setup),
+                              ("profile_kernel_a", profile_kernel_a, setup),
+                              ("profile_resample", profile_resample, rs_in)):
+        kernels.reset_launches()
+        res = mod.run(inputs)
+        torch.cuda.synchronize()
+        script_launches[name] = dict(kernels.launches)
+        emit(dict(phase=name, **res, launches=script_launches[name], lines=mod.report(res).splitlines()))
+
+    # ---- phase 7: the kernels line. K5 carries the query (phase 3), K3 and
+    # K4 the two-kernel query (phase 3), K1 and K2 the backward (phase 4),
+    # P1-P3 the profiling scripts (phase 6); each reports its launches in
+    # the run of its own path.
+    path_of = {"mega_pipeline": "query", "proposal": "two_kernel_query",
+               "field_composite": "two_kernel_query", "fused_density": "backward",
+               "fused_field": "backward", "profile_query.kernel_a": "profile_query",
+               "profile_query.kernel_b": "profile_query"}
+    path_of |= {f"proposal_variant[{m}]": "profile_kernel_a" for m in mq.PROPOSAL_MODES}
+    path_of |= {f"resample[{f}]": "profile_resample" for f in rs.FORMS}
+    counted_as = {"profile_query.kernel_a": "proposal", "profile_query.kernel_b": "field_composite"}
+    counts = {"query": fwd_launches, "two_kernel_query": two_launches, "backward": bwd_launches,
+              **script_launches}
     line = {"kernels": [
         {k: results[name][k] for k in ("name", "route", "source", "replaces")}
-        | {"path": path_of[name], "launches": counts[path_of[name]].get(name, 0)}
+        | {"path": path_of[name], "launches": counts[path_of[name]].get(counted_as.get(name, name), 0)}
         | {k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms")}
         for name in results
     ]}
+    idle = [k["name"] for k in line["kernels"] if k["launches"] < 1]
+    if idle:
+        raise AssertionError(f"kernels not launched on their paths: {idle}")
     print(card, flush=True)
     emit(line)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

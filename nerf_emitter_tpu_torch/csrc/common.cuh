@@ -1,4 +1,4 @@
-// Pieces the four emitter-query kernels share: the affine scene-box map
+// Pieces the emitter-query kernels share: the affine scene-box map
 // with keep mask and carve-out box, the frequency encoding by double-angle
 // recurrence, the degree-4 SH basis, the piecewise spacing warp, and one
 // block-wide MLP over a tile of TILE samples.
@@ -135,7 +135,7 @@ __device__ inline void freq_encode(bf16* row, const float x2[3], int F, bool fma
             row[3 + r] = __float2bfloat16(s);
             row[3 + 3 * F + r] = __float2bfloat16(c);
             float s2 = (2.0f * s) * c;
-            float c2 = 1.0f - (2.0f * s) * s;
+            float c2 = __fsub_rn(1.0f, __fmul_rn(2.0f * s, s));  // the twins' rounding, unfused
             s = s2;
             c = c2;
         }
@@ -186,18 +186,19 @@ __device__ inline float spacing_pw_inv(float s) {
 // the block-wide MLP
 // ---------------------------------------------------------------------------
 
-// out = in (TILE x K) @ W (K x N) + bias. With out_bf: ReLU, bf16, row stride
-// ld_out; else f32 into out_f (row stride ld_out). 16x16 output tiles go to the
-// warps round-robin; each warp stages its f32 tile in its scratch.
+// out = in (TILE x K) @ W (K x N) + bias, for the 16-row tiles [tm_lo, tm_hi)
+// of the TILE rows. With out_bf: ReLU, bf16, row stride ld_out; else f32
+// into out_f (row stride ld_out). 16x16 output tiles go to the warps
+// round-robin; each warp stages its f32 tile in its scratch.
 __device__ inline void wmma_layer(const bf16* in, int ld_in, int K, const bf16* W, int N,
                                   const float* bias, bf16* out_bf, float* out_f, int ld_out,
-                                  float* scratch) {
+                                  float* scratch, int tm_lo = 0, int tm_hi = TILE / 16) {
     using namespace nvcuda;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     float* scr = scratch + warp * 256;
-    const int tiles_m = TILE / 16, tiles = tiles_m * (N / 16);
+    const int tiles_m = tm_hi - tm_lo, tiles = tiles_m * (N / 16);
     for (int t = warp; t < tiles; t += WARPS) {
-        const int tm = t % tiles_m, tn = t / tiles_m;
+        const int tm = tm_lo + t % tiles_m, tn = t / tiles_m;
         wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
         wmma::fill_fragment(acc, 0.0f);
         for (int k = 0; k < K; k += 16) {
@@ -221,6 +222,24 @@ __device__ inline void wmma_layer(const bf16* in, int ld_in, int K, const bf16* 
     }
 }
 
+// The output layer of run_mlp / run_mlp_sliced on the last hidden rows
+// `cur`: f32 (TILE x n_last, row stride n_last) into s.out.
+__device__ inline void run_mlp_last(const Mlp& m, const MlpSmem& s, const bf16* cur, int ld) {
+    const int L = m.n_layers - 1, n = m.n[L], K = m.k[L];
+    if (n <= 4) {
+        for (int i = threadIdx.x; i < TILE * n; i += blockDim.x) {
+            const int t = i / n, o = i % n;
+            const bf16* h = cur + (size_t)t * ld;
+            float acc = 0.0f;
+            for (int j = 0; j < K; ++j) acc += m.w_last[j * n + o] * __bfloat162float(h[j]);
+            s.out[t * n + o] = acc + m.b[L][o];
+        }
+    } else {
+        wmma_layer(cur, ld, K, m.w[L], n, m.b[L], nullptr, s.out, n, s.scratch);
+    }
+    __syncthreads();
+}
+
 // Runs the MLP on the TILE rows of s.a (input in columns [0, k[0])). Hidden
 // layers ping-pong between s.a and s.b; the last layer writes f32
 // (TILE x n_last, row stride n_last) to s.out. All threads of the block call it.
@@ -235,19 +254,30 @@ __device__ inline void run_mlp(const Mlp& m, const MlpSmem& s, int ld) {
         cur = nxt;
         nxt = t;
     }
-    const int L = m.n_layers - 1, n = m.n[L], K = m.k[L];
-    if (n <= 4) {
-        for (int i = threadIdx.x; i < TILE * n; i += blockDim.x) {
-            const int t = i / n, o = i % n;
-            const bf16* h = cur + (size_t)t * ld;
-            float acc = 0.0f;
-            for (int j = 0; j < K; ++j) acc += m.w_last[j * n + o] * __bfloat162float(h[j]);
-            s.out[t * n + o] = acc + m.b[L][o];
-        }
-    } else {
-        wmma_layer(cur, ld, K, m.w[L], n, m.b[L], nullptr, s.out, n, s.scratch);
-    }
+    run_mlp_last(m, s, cur, ld);
+}
+
+// run_mlp with each hidden layer issued as `slices` block-wide passes over
+// contiguous sample (row-tile) slices, each closed by a barrier (clamped to
+// [1, TILE / 16]): the schedule changes, every output element's sum does
+// not. Only K5's field stage runs it (its `mxu_chunk`).
+__device__ inline void run_mlp_sliced(const Mlp& m, const MlpSmem& s, int ld, int slices) {
+    bf16* cur = s.a;
+    bf16* nxt = s.b;
+    constexpr int tiles_m = TILE / 16;
+    slices = min(max(slices, 1), tiles_m);
     __syncthreads();
+    for (int l = 0; l < m.n_layers - 1; ++l) {
+        for (int c = 0; c < slices; ++c) {
+            wmma_layer(cur, ld, m.k[l], m.w[l], m.n[l], m.b[l], nxt, nullptr, ld, s.scratch,
+                       tiles_m * c / slices, tiles_m * (c + 1) / slices);
+            __syncthreads();
+        }
+        bf16* t = cur;
+        cur = nxt;
+        nxt = t;
+    }
+    run_mlp_last(m, s, cur, ld);
 }
 
 }  // namespace nek

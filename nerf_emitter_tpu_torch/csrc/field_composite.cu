@@ -13,12 +13,15 @@
 // ray: 0.58 TFLOP at 2^16 rays, 1.85 ms of bf16 tensor-core time, against
 // 228 bytes of I/O per ray.
 //
+// The per-group body is emitter_query.cuh `field_group` and
+// `composite_ray`, which K5 runs on its own bins.
+//
 // Design: one block of 8 warps owns 4 whole rays (192 samples), so the
 // composite needs no second pass. The samples run through the block-wide
 // wmma MLP in 64-sample tiles (two 64 x 264 bf16 activation buffers in
 // shared memory, weights read as fragments from L1/L2); per-sample density
 // and colour stay in shared memory; one thread per ray composites.
-#include "common.cuh"
+#include "emitter_query.cuh"
 
 using namespace nek;
 
@@ -49,60 +52,14 @@ field_composite_kernel(const float* __restrict__ sbins, const float* __restrict_
             ray[t * 6 + k] = o[k * n + g];
             ray[t * 6 + 3 + k] = d[k * n + g];
         }
-        const float sn = spacing_pw(near[g]), sf = spacing_pw(far[g]);
-        for (int i = 0; i <= s2; ++i)
-            eb[t * (s2 + 1) + i] = spacing_pw_inv(sbins[(long long)i * n + g] * (sf - sn) + sn);
+        euclid_bins(eb + t * (s2 + 1), sbins + g, n, s2, spacing_pw(near[g]), spacing_pw(far[g]));
     }
     __syncthreads();
-    const int total = n_rays * s2;
-    for (int c0 = 0; c0 < total; c0 += TILE) {
-        const int j = c0 + t;
-        const bool valid = t < TILE && j < total;
-        const int r = valid ? j / s2 : 0, si = valid ? j % s2 : 0;
-        bool keep = false;
-        if (t < TILE) {
-            float p[3] = {0.0f, 0.0f, 0.0f}, x2[3];
-            if (valid) {
-                const float mid = (eb[r * (s2 + 1) + si] + eb[r * (s2 + 1) + si + 1]) / 2.0f;
-                for (int k = 0; k < 3; ++k) p[k] = ray[r * 6 + k] + ray[r * 6 + 3 + k] * mid;
-            }
-            keep = contract_and_select(bx, p, x2) && valid;
-            freq_encode(s.a + (size_t)t * ld, x2, F, true, base.k[0]);
-        }
-        run_mlp(base, s, ld);  // s.out: (TILE, 16)
-        if (t < TILE) {
-            if (valid) dens[j] = density_of(s.out[t * 16], keep, bx.avg_density);
-            float sh[16];
-            const float* dr = ray + r * 6 + 3;
-            sh4(dr[0], dr[1], dr[2], sh);
-            bf16* row = s.a + (size_t)t * ld;
-            for (int q = 0; q < 16; ++q) row[q] = __float2bfloat16(sh[q]);
-            for (int q = 1; q < 16; ++q) row[15 + q] = __float2bfloat16(s.out[t * 16 + q]);
-            for (int q = 0; q < n_emb; ++q) row[31 + q] = __float2bfloat16(emb[q]);
-            for (int q = 31 + n_emb; q < head.k[0]; ++q) row[q] = __float2bfloat16(0.0f);
-        }
-        run_mlp(head, s, ld);  // s.out: (TILE, 3)
-        if (valid)
-            for (int k = 0; k < 3; ++k) rgb[j * 3 + k] = rgb_of(s.out[t * 3 + k], hdr, rgb_bias);
-        __syncthreads();
-    }
-    if (t < n_rays) {
-        const float* e = eb + t * (s2 + 1);
-        float excl = 0.0f, acc = 0.0f, comp[3] = {0.0f, 0.0f, 0.0f};
-        for (int si = 0; si < s2; ++si) {
-            const float dd = dens[t * s2 + si] * (e[si + 1] - e[si]);
-            const float w = (1.0f - expf(-dd)) * expf(-excl);
-            excl += dd;
-            acc += w;
-            for (int k = 0; k < 3; ++k) comp[k] += w * rgb[(t * s2 + si) * 3 + k];
-        }
-        const float* bg = rgb + (t * s2 + s2 - 1) * 3;
-        for (int k = 0; k < 3; ++k) rgb_out[k * n + r0 + t] = comp[k] + bg[k] * (1.0f - acc);
-        if (aux_out) {
-            aux_out[r0 + t] = acc;
-            for (int k = 0; k < 3; ++k) aux_out[(k + 1) * n + r0 + t] = bg[k];
-        }
-    }
+    field_group<false>(s, eb, ray, 6, dens, rgb, n_rays, base, head, bx, emb, n_emb, F, s2, ld, hdr,
+                rgb_bias, 1);
+    if (t < n_rays)
+        composite_ray(eb + t * (s2 + 1), dens + t * s2, rgb + t * s2 * 3, s2, n, r0 + t, rgb_out,
+                      aux_out);
 }
 
 NEK_ERROR_STRING_FN

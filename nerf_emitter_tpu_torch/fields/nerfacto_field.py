@@ -21,7 +21,7 @@ from .encodings import nerf_encode, sh_encode
 from .mlp import MLP
 
 _HASH_TODO = (
-    "implementation='hash' is not ported yet (ROADMAP.md, Queue 1 item 3: "
+    "implementation='hash' is not ported yet (ROADMAP.md, Queue 1 item 1: "
     "hash_encode); use implementation='freq'"
 )
 

@@ -3,13 +3,15 @@
 The sources under `nerf_emitter_tpu_torch/csrc/` are compiled on first use
 with `nvcc` for sm_90a, one shared library per kernel source, all compiled
 in parallel, into `nerf_emitter_tpu_torch/_build/<hash of sources>/`
-(listed in .gitignore). Each library has a plain C interface loaded with
+(listed in .gitignore). A source may hold several launchers (kernels);
+it is compiled once. Each library has a plain C interface loaded with
 ctypes: pointers and the stream pass as `c_void_p`, and every launcher
 returns `cudaGetLastError()` after its launch, which `launch` turns into a
 RuntimeError.
 
-`launches` counts, per kernel, the launches made through `launch`; a run
-reads it to show that a path went through the kernels.
+`launches` counts, per kernel (per instantiation for the launchers that
+take a mode), the launches made through `launch`; a run reads it to show
+that a path went through the kernels.
 """
 
 from __future__ import annotations
@@ -29,12 +31,15 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 
-# kernel name -> CUDA source (one shared library each)
+# kernel name -> CUDA source (one shared library per source)
 SOURCES = {
     "fused_density": "fused_density.cu",
     "fused_field": "fused_field.cu",
     "proposal": "proposal.cu",
+    "proposal_variant": "proposal.cu",
     "field_composite": "field_composite.cu",
+    "mega_pipeline": "mega_pipeline.cu",
+    "resample": "resample.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,7 +56,11 @@ SIGNATURES = {
     "proposal": [_P, _P, _P, _P, _LL, *_MLP, *_MLP, _PF, _I, _I, _I, _I, _I, _I, _P, _P],
     "field_composite":
         [_P, _P, _P, _P, _P, _P, _I, _LL, *_MLP, *_MLP, _PF, _I, _I, _I, _I, _F, _P, _P, _P],
+    "mega_pipeline": [_P, _P, _P, _P, _P, _I, _LL, *_MLP, *_MLP, *_MLP, *_MLP, _PF, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _F, _I, _P, _P, _P],
+    "resample": [_I, _P, _P, _P, _LL, _I, _I, _I, _P, _P],
 }
+SIGNATURES["proposal_variant"] = [_I, *SIGNATURES["proposal"]]
 
 launches: collections.Counter = collections.Counter()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -83,35 +92,36 @@ def _source_hash() -> str:
 def build() -> dict:
     """Compile every kernel source (in parallel) unless this set of sources
     is already built; load the libraries. Returns build_info: the build
-    directory, seconds spent and each kernel's ptxas report."""
+    directory, seconds spent and each source's ptxas report."""
     if _libs:
         return build_info
     out_dir = BUILD_ROOT / _source_hash()
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
-    for name, src in SOURCES.items():
-        lib = out_dir / f"lib{name}.so"
+    for src in sorted(set(SOURCES.values())):
+        stem = Path(src).stem
+        lib = out_dir / f"lib{stem}.so"
         if lib.exists():
             continue
-        tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
+        tmp = out_dir / f"lib{stem}.so.tmp{os.getpid()}"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, lib)
     reports = {}
     failed = []
-    for name, (proc, tmp, lib) in procs.items():
+    for stem, (proc, tmp, lib) in procs.items():
         out, _ = proc.communicate()
-        reports[name] = out
-        (out_dir / f"{name}.log").write_text(out)
+        reports[stem] = out
+        (out_dir / f"{stem}.log").write_text(out)
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{out}")
+            failed.append(f"{stem}:\n{out}")
         else:
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    for name in SOURCES:
-        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+    for name, src in SOURCES.items():
+        lib = ctypes.CDLL(str(out_dir / f"lib{Path(src).stem}.so"))
         lib.nek_error_string.restype = ctypes.c_char_p
         lib.nek_error_string.argtypes = [ctypes.c_int]
         fn = getattr(lib, f"nek_{name}")
@@ -121,6 +131,21 @@ def build() -> dict:
     build_info.update(dir=str(out_dir), seconds=time.perf_counter() - t0,
                       compiled=sorted(procs), ptxas=reports)
     return build_info
+
+
+def mega_pipeline_occupancy(ld: int, s0: int, s1: int, s2: int) -> tuple[int, int]:
+    """(blocks of K5 resident per SM, SM count) at these row stride and
+    sample counts, as its launcher sizes its persistent grid."""
+    build()
+    fn = _libs["mega_pipeline"].nek_mega_pipeline_occupancy
+    fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    fn.restype = ctypes.c_int
+    per_sm, sms = _I(0), _I(0)
+    rc = fn(ld, s0, s1, s2, ctypes.byref(per_sm), ctypes.byref(sms))
+    if rc != 0:
+        msg = _libs["mega_pipeline"].nek_error_string(rc).decode()
+        raise RuntimeError(f"mega_pipeline occupancy: {msg}")
+    return per_sm.value, sms.value
 
 
 # ---------------------------------------------------------------------------
@@ -208,13 +233,14 @@ class PackedMlp:
         return self._dims, self._ptrs
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, count_as: str | None = None) -> None:
     """Call the launcher `nek_<name>` of kernel `name` on the current
-    stream; raise if the launch was refused; count it."""
+    stream; raise if the launch was refused; count it under `count_as`
+    (a launcher's instantiation, e.g. "resample[walk]") or its name."""
     build()
     lib = _libs[name]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     rc = getattr(lib, f"nek_{name}")(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed: {lib.nek_error_string(rc).decode()}")
-    launches[name] += 1
+    launches[count_as or name] += 1

@@ -100,7 +100,7 @@ class NerfactoModel(nn.Module):
         Deterministic (bin-centre) sampling; differentiable end to end."""
         if train:
             raise NotImplementedError(
-                "training outputs are not ported yet (ROADMAP.md, Queue 1 item 6)"
+                "training outputs are not ported yet (ROADMAP.md, Queue 1 item 3)"
             )
 
         def make_density_fn(net):

@@ -1,6 +1,7 @@
-"""The two-kernel emitter query: K3 (`proposal_bins`) and K4
-(`field_composite`) (port of nerf_emitter_tpu/ops/mega_query.py, its
-`pipelined=False` configuration).
+"""The kernel emitter query (port of nerf_emitter_tpu/ops/mega_query.py):
+K5 (`mega_pipeline`, the default) or K3 (`proposal_bins`) then K4
+(`field_composite`), and P2 (`proposal_variant`), K3 with pieces stubbed
+out for profiling.
 
   K3 (proposals): uniform spacing bins -> level-0 density MLP -> weights ->
     inverse-CDF resample -> level-1 density MLP -> weights -> resample ->
@@ -8,10 +9,12 @@
   K4 (field): bins -> positions -> base MLP + SH / appearance head ->
     weights -> composite with the last-sample background -> rgb (3, N).
     csrc/field_composite.cu.
+  K5: K3 then K4 per ray group in one launch; the bins stay in shared
+    memory. csrc/mega_pipeline.cu.
 
-Only the (s2+1, N) spacing bins cross device memory between the two; the
-rays' o, d, near, far are the only per-ray inputs. Sampling is the staged
-query's deterministic serving mode (bin centres, no jitter).
+The rays' o, d, near, far are the only per-ray inputs; between K3 and K4
+only the (s2+1, N) spacing bins cross device memory. Sampling is the
+staged query's deterministic serving mode (bin centres, no jitter).
 
 The inverse CDF: the TPU kernel evaluates it as a telescoped sum of ReLU
 ramps (exact up to ~1e-4 of the spacing range from cancellation); the port
@@ -19,13 +22,15 @@ walks the CDF and interpolates within the segment, which is the same
 piecewise-linear function without that cancellation.
 
 Each kernel has a plain PyTorch twin (`_plain_proposal`,
-`_plain_field_composite`) that the wrappers use for CPU tensors only.
-Gradients of the query recompute through the staged query
-(ops/fused_field.py), whose kernels' own backward recomputes through
-their twins.
+`_plain_field_composite`, `_plain_mega_pipeline`, `_plain_proposal_variant`)
+that the wrappers use for CPU tensors only. Gradients of the query
+recompute through the staged query (ops/fused_field.py), whose kernels'
+own backward recomputes through their twins.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -97,10 +102,16 @@ def _density_rows(ebins, o, d, ws, bs, *, num_freqs, aabb_lo, aabb_inv_ext, disa
 # ---------------------------------------------------------------------------
 
 
+PROPOSAL_MODES = ("full", "dens-only", "resample-only")  # csrc/emitter_query.cuh ProposalMode
+
+
 def _plain_proposal(o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1, *, s0, s1, s2, freqs0, freqs1,
-                    aabb_lo, aabb_inv_ext, disable_box, avg_density):
+                    aabb_lo, aabb_inv_ext, disable_box, avg_density, mode="full"):
     """Twin of the proposal kernel: rays (3, N) / (1, N) -> (s2+1, N) bins.
-    First-layer weight rows are in f-major order (`permute_first`)."""
+    First-layer weight rows are in f-major order (`permute_first`). `mode`
+    stubs pieces out as P2 does: "dens-only" replaces each resample by
+    uniform bins i/s, "resample-only" each density by 0.3 x the sample's
+    far bin edge."""
     r = o_t.shape[1]
     s_near, s_far = _spacing_pw(near_t), _spacing_pw(far_t)
     kw = dict(aabb_lo=aabb_lo, aabb_inv_ext=aabb_inv_ext, disable_box=disable_box,
@@ -109,9 +120,41 @@ def _plain_proposal(o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1, *, s0, s1, s2, 
     sbins = sbins.expand(s0 + 1, r)
     for ws, bs, freqs, n_out in ((ws0, bs0, freqs0, s1), (ws1, bs1, freqs1, s2)):
         ebins = _spacing_pw_inv(sbins * (s_far - s_near) + s_near)
-        dens = _density_rows(ebins, o_t, d_t, ws, bs, num_freqs=freqs, **kw)
-        sbins = _resample_rows(_weights_rows(dens, ebins[1:] - ebins[:-1]), sbins, n_out)
+        if mode == "resample-only":
+            dens = ebins[1:] * 0.3
+        else:
+            dens = _density_rows(ebins, o_t, d_t, ws, bs, num_freqs=freqs, **kw)
+        wts = _weights_rows(dens, ebins[1:] - ebins[:-1])
+        if mode == "dens-only":
+            sbins = (torch.arange(n_out + 1, device=o_t.device, dtype=torch.float32)
+                     / float(n_out))[:, None].expand(n_out + 1, r)
+        else:
+            sbins = _resample_rows(wts, sbins, n_out)
     return sbins
+
+
+def _check_rays(o_t, d_t, near_t, far_t):
+    n = o_t.shape[1]
+    for name, t, rows in (("o_t", o_t, 3), ("d_t", d_t, 3), ("near_t", near_t, 1), ("far_t", far_t, 1)):
+        kernels.check_tensor(t, name, ndim=2, rows=rows, cols=n)
+
+
+def _launch_proposal(name, mode_args, count_as, o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1, *, s0,
+                     s1, s2, freqs0, freqs1, aabb_lo, aabb_inv_ext, disable_box, avg_density):
+    n = o_t.shape[1]
+    _check_rays(o_t, d_t, near_t, far_t)
+    mlp0 = kernels.PackedMlp(ws0, bs0, device=o_t.device)
+    mlp1 = kernels.PackedMlp(ws1, bs1, device=o_t.device)
+    out = torch.empty(s2 + 1, n, dtype=torch.float32, device=o_t.device)
+    kernels.launch(
+        name, *mode_args,
+        kernels.ptr(o_t), kernels.ptr(d_t), kernels.ptr(near_t), kernels.ptr(far_t), kernels.i64(n),
+        *mlp0.args(), *mlp1.args(),
+        kernels.box_consts(aabb_lo, aabb_inv_ext, disable_box, avg_density),
+        kernels.i32(freqs0), kernels.i32(freqs1), kernels.i32(s0), kernels.i32(s1), kernels.i32(s2),
+        kernels.i32(max(mlp0.ld, mlp1.ld)), kernels.ptr(out), count_as=count_as,
+    )
+    return out
 
 
 def proposal_bins(o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1, *, s0, s1, s2, freqs0, freqs1,
@@ -123,21 +166,23 @@ def proposal_bins(o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1, *, s0, s1, s2, fr
               aabb_inv_ext=aabb_inv_ext, disable_box=disable_box, avg_density=avg_density)
     if o_t.device.type == "cpu":
         return _plain_proposal(o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1, **kw)
-    n = o_t.shape[1]
-    for name, t, rows in (("o_t", o_t, 3), ("d_t", d_t, 3), ("near_t", near_t, 1), ("far_t", far_t, 1)):
-        kernels.check_tensor(t, name, ndim=2, rows=rows, cols=n)
-    mlp0 = kernels.PackedMlp(ws0, bs0, device=o_t.device)
-    mlp1 = kernels.PackedMlp(ws1, bs1, device=o_t.device)
-    out = torch.empty(s2 + 1, n, dtype=torch.float32, device=o_t.device)
-    kernels.launch(
-        "proposal",
-        kernels.ptr(o_t), kernels.ptr(d_t), kernels.ptr(near_t), kernels.ptr(far_t), kernels.i64(n),
-        *mlp0.args(), *mlp1.args(),
-        kernels.box_consts(aabb_lo, aabb_inv_ext, disable_box, avg_density),
-        kernels.i32(freqs0), kernels.i32(freqs1), kernels.i32(s0), kernels.i32(s1), kernels.i32(s2),
-        kernels.i32(max(mlp0.ld, mlp1.ld)), kernels.ptr(out),
-    )
-    return out
+    return _launch_proposal("proposal", (), None, o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1, **kw)
+
+
+def proposal_variant(o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1, *, mode, s0, s1, s2, freqs0,
+                     freqs1, aabb_lo, aabb_inv_ext, disable_box, avg_density):
+    """Kernel P2: K3 with pieces stubbed out (`mode` in PROPOSAL_MODES, see
+    `_plain_proposal`), the same inputs and output. "full" launches K3's
+    own instantiation."""
+    if mode not in PROPOSAL_MODES:
+        raise ValueError(f"mode must be one of {PROPOSAL_MODES}, got {mode!r}")
+    kw = dict(s0=s0, s1=s1, s2=s2, freqs0=freqs0, freqs1=freqs1, aabb_lo=aabb_lo,
+              aabb_inv_ext=aabb_inv_ext, disable_box=disable_box, avg_density=avg_density)
+    if o_t.device.type == "cpu":
+        return _plain_proposal(o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1, mode=mode, **kw)
+    return _launch_proposal("proposal_variant", (kernels.i32(PROPOSAL_MODES.index(mode)),),
+                            f"proposal_variant[{mode}]", o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1,
+                            **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +213,19 @@ def _plain_field_composite(sbins, o_t, d_t, near_t, far_t, emb, bws, bbs, hws, h
     return (out, torch.cat([acc[None], rgb[-1].T])) if with_aux else out
 
 
+def _check_field(o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs):
+    """Check the rays and the appearance vector for a field kernel (K4,
+    K5); pack the field's MLPs."""
+    _check_rays(o_t, d_t, near_t, far_t)
+    kernels.check_tensor(emb, "emb", ndim=1)
+    base = kernels.PackedMlp(bws, bbs, device=o_t.device)
+    head = kernels.PackedMlp(hws, hbs, device=o_t.device)
+    if base.n[-1] != 16 or head.n[-1] != 3 or head.k_real[0] != 31 + emb.shape[0]:
+        raise ValueError("field kernel takes a 16-wide base output (density + 15 geo) and a "
+                         "3-wide head over [sh16, geo15, emb]")
+    return base, head
+
+
 def field_composite(sbins, o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs, *, s2, freqs,
                     aabb_lo, aabb_inv_ext, disable_box, avg_density, hdr, rgb_bias, with_aux=False):
     """Kernel K4: spacing bins (s2+1, N), rays (3, N) / (1, N), one
@@ -182,14 +240,7 @@ def field_composite(sbins, o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs, *, 
         return _plain_field_composite(sbins, o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs, **kw)
     n = o_t.shape[1]
     kernels.check_tensor(sbins, "sbins", ndim=2, rows=s2 + 1, cols=n)
-    for name, t, rows in (("o_t", o_t, 3), ("d_t", d_t, 3), ("near_t", near_t, 1), ("far_t", far_t, 1)):
-        kernels.check_tensor(t, name, ndim=2, rows=rows, cols=n)
-    kernels.check_tensor(emb, "emb", ndim=1)
-    base = kernels.PackedMlp(bws, bbs, device=o_t.device)
-    head = kernels.PackedMlp(hws, hbs, device=o_t.device)
-    if base.n[-1] != 16 or head.n[-1] != 3 or head.k_real[0] != 31 + emb.shape[0]:
-        raise ValueError("field kernel takes a 16-wide base output (density + 15 geo) and a "
-                         "3-wide head over [sh16, geo15, emb]")
+    base, head = _check_field(o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs)
     out = torch.empty(3, n, dtype=torch.float32, device=o_t.device)
     aux = torch.empty(4, n, dtype=torch.float32, device=o_t.device) if with_aux else None
     kernels.launch(
@@ -206,13 +257,74 @@ def field_composite(sbins, o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs, *, 
 
 
 # ---------------------------------------------------------------------------
+# K5: the whole query in one launch
+# ---------------------------------------------------------------------------
+
+
+def _plain_mega_pipeline(o_t, d_t, near_t, far_t, emb, ws0, bs0, ws1, bs1, bws, bbs, hws, hbs, *,
+                         s0, s1, s2, freqs0, freqs1, freqs, aabb_lo, aabb_inv_ext, disable_box,
+                         avg_density, hdr, rgb_bias, with_aux=False):
+    """Twin of the pipelined kernel: the proposal twin, then the
+    field/composite twin on its bins (what the TPU kernel computes per tile,
+    mega_query.py:335)."""
+    box = dict(aabb_lo=aabb_lo, aabb_inv_ext=aabb_inv_ext, disable_box=disable_box,
+               avg_density=avg_density)
+    sbins = _plain_proposal(o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1, s0=s0, s1=s1, s2=s2,
+                            freqs0=freqs0, freqs1=freqs1, **box)
+    return _plain_field_composite(sbins, o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs, s2=s2,
+                                  freqs=freqs, hdr=hdr, rgb_bias=rgb_bias, with_aux=with_aux, **box)
+
+
+def mega_pipeline(o_t, d_t, near_t, far_t, emb, ws0, bs0, ws1, bs1, bws, bbs, hws, hbs, *, s0, s1,
+                  s2, freqs0, freqs1, freqs, aabb_lo, aabb_inv_ext, disable_box, avg_density, hdr,
+                  rgb_bias, mxu_chunk=1, with_aux=False):
+    """Kernel K5: rays o_t, d_t (3, N), near_t, far_t (1, N) and one
+    appearance vector (E,) -> rgb (3, N), and with `with_aux` also (acc,
+    rgb_last) as (4, N): K3's bins and K4's field and composite in one
+    launch, equal to K4 on K3's bins. `mxu_chunk` cuts the field's base-MLP
+    hidden layers into that many sample-slice passes (csrc/mega_pipeline.cu);
+    the answer does not depend on it."""
+    kw = dict(s0=s0, s1=s1, s2=s2, freqs0=freqs0, freqs1=freqs1, freqs=freqs, aabb_lo=aabb_lo,
+              aabb_inv_ext=aabb_inv_ext, disable_box=disable_box, avg_density=avg_density, hdr=hdr,
+              rgb_bias=rgb_bias, with_aux=with_aux)
+    if mxu_chunk < 1:
+        raise ValueError(f"mxu_chunk must be >= 1, got {mxu_chunk}")
+    if o_t.device.type == "cpu":
+        return _plain_mega_pipeline(o_t, d_t, near_t, far_t, emb, ws0, bs0, ws1, bs1, bws, bbs, hws,
+                                    hbs, **kw)
+    n = o_t.shape[1]
+    base, head = _check_field(o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs)
+    mlp0 = kernels.PackedMlp(ws0, bs0, device=o_t.device)
+    mlp1 = kernels.PackedMlp(ws1, bs1, device=o_t.device)
+    out = torch.empty(3, n, dtype=torch.float32, device=o_t.device)
+    aux = torch.empty(4, n, dtype=torch.float32, device=o_t.device) if with_aux else None
+    kernels.launch(
+        "mega_pipeline",
+        kernels.ptr(o_t), kernels.ptr(d_t), kernels.ptr(near_t), kernels.ptr(far_t),
+        kernels.ptr(emb), kernels.i32(emb.shape[0]), kernels.i64(n),
+        *mlp0.args(), *mlp1.args(), *base.args(), *head.args(),
+        kernels.box_consts(aabb_lo, aabb_inv_ext, disable_box, avg_density),
+        kernels.i32(freqs0), kernels.i32(freqs1), kernels.i32(freqs), kernels.i32(s0),
+        kernels.i32(s1), kernels.i32(s2), kernels.i32(mega_ld(mlp0, mlp1, base, head)),
+        kernels.i32(int(hdr)), kernels.f32(rgb_bias), kernels.i32(mxu_chunk), kernels.ptr(out),
+        kernels.ptr(aux) if with_aux else None,
+    )
+    return (out, aux) if with_aux else out
+
+
+def mega_ld(*mlps) -> int:
+    """K5's activation row stride: the widest of its four MLPs'."""
+    return max(m.ld for m in mlps)
+
+
+# ---------------------------------------------------------------------------
 # builder
 # ---------------------------------------------------------------------------
 
 
 class _MegaQuery(torch.autograd.Function):
-    """Forward through K3 + K4; backward recomputes through the staged
-    query (the reference's custom_vjp)."""
+    """Forward through K5 or K3 + K4; backward recomputes through the
+    staged query (the reference's custom_vjp)."""
 
     @staticmethod
     def forward(ctx, run, origins, directions, nears, fars, *params):
@@ -242,18 +354,42 @@ class _MegaRun:
         self.rays, self.camera_index = rays, camera_index
 
 
-def make_mega_radiance_query(model, *, disable_box=None, pipelined=False, device=None):
-    """The kernel query on K3 + K4, with the contract of
-    `make_fused_radiance_query`: query(params_or_model, rays,
-    camera_index=None) -> rgb (n, 3), one camera for all rays.
+def _switches(pipelined, mxu_chunk):
+    """The builder's two switches with the reference's defaults and errors
+    (nerf_emitter_tpu/ops/mega_query.py:583-595)."""
+    if pipelined is None:
+        pipelined = os.environ.get("NERF_EMITTER_MEGA_PIPELINED", "1") == "1"
+    if mxu_chunk is None:
+        raw = os.environ.get("NERF_EMITTER_MEGA_MXU_CHUNK", "1")
+        try:
+            mxu_chunk = int(raw)
+        except ValueError as e:
+            raise ValueError(
+                f"NERF_EMITTER_MEGA_MXU_CHUNK={raw!r} must be an integer "
+                "(number of column slices per hidden-layer matmul)"
+            ) from e
+    if mxu_chunk < 1:
+        raise ValueError(f"mxu_chunk must be >= 1, got {mxu_chunk}")
+    return bool(pipelined), mxu_chunk
 
-    pipelined=True (the reference's default single pipelined kernel, K5)
-    is not ported yet and raises. `device=None` means CUDA."""
-    if pipelined:
-        raise NotImplementedError(
-            "K5 (the pipelined single megakernel, mega_query.py:318-554) is not ported "
-            "yet; see ROADMAP.md Queue 2. Use pipelined=False."
-        )
+
+def make_mega_radiance_query(model, *, disable_box=None, pipelined=None, mxu_chunk=None,
+                             device=None):
+    """The kernel query, with the contract of `make_fused_radiance_query`:
+    query(params_or_model, rays, camera_index=None) -> rgb (n, 3), one
+    camera for all rays.
+
+    pipelined=True runs the whole query as K5; False runs K3 then K4. The
+    answer is the same either way. mxu_chunk > 1 cuts K5's field hidden
+    layers into that many sample-slice passes: the answer is the same, only
+    the schedule changes, and on an H100 each value above 1 only adds
+    barriers and time (it is kept for the reference's knob). Both default
+    from NERF_EMITTER_MEGA_PIPELINED (default "1") and
+    NERF_EMITTER_MEGA_MXU_CHUNK (default "1"), read here, once: changing the
+    environment after the query is built does not change it. The query
+    carries the values it was built with as `.pipelined` and `.mxu_chunk`.
+    `device=None` means CUDA."""
+    pipelined, mxu_chunk = _switches(pipelined, mxu_chunk)
     cfg = _QueryConfig(model, disable_box, device)
     s0, s1 = cfg.n_prop
     s2 = cfg.n_nerf
@@ -265,25 +401,25 @@ def make_mega_radiance_query(model, *, disable_box=None, pipelined=False, device
         def forward(p, origins, directions, nears, fars):
             n = origins.shape[0]
             n_pad = -(-n // TILE_RAYS) * TILE_RAYS
-            o_t = pad_rows(origins, n_pad, 0.0)
-            d_t = pad_rows(directions, n_pad, 1.0)
-            near_t = pad_rows(nears, n_pad, 0.1)
-            far_t = pad_rows(fars, n_pad, 0.2)
+            rows = (pad_rows(origins, n_pad, 0.0), pad_rows(directions, n_pad, 1.0),
+                    pad_rows(nears, n_pad, 0.1), pad_rows(fars, n_pad, 0.2))
             ws0, bs0 = _mlp_params(p, "proposal_0.mlp")
             ws1, bs1 = _mlp_params(p, "proposal_1.mlp")
             f0, f1 = _freqs_of(ws0[0]), _freqs_of(ws1[0])
-            sbins = proposal_bins(
-                o_t, d_t, near_t, far_t, permute_first(ws0, f0), bs0, permute_first(ws1, f1), bs1,
-                s0=s0, s1=s1, s2=s2, freqs0=f0, freqs1=f1, **kw,
-            )
+            props = (permute_first(ws0, f0), bs0, permute_first(ws1, f1), bs1)
             bws, bbs = _mlp_params(p, "field.base_mlp")
             hws, hbs = _mlp_params(p, "field.head_mlp")
             ff = _freqs_of(bws[0])
+            field = (permute_first(bws, ff), bbs, hws, hbs)
             emb = cfg.embedding(p, camera_index, origins.device).contiguous()
-            rgb_t = field_composite(
-                sbins, o_t, d_t, near_t, far_t, emb, permute_first(bws, ff), bbs, hws, hbs,
-                s2=s2, freqs=ff, hdr=cfg.hdr, rgb_bias=cfg.rgb_bias, **kw,
-            )
+            if pipelined:
+                rgb_t = mega_pipeline(*rows, emb, *props, *field, s0=s0, s1=s1, s2=s2, freqs0=f0,
+                                      freqs1=f1, freqs=ff, hdr=cfg.hdr, rgb_bias=cfg.rgb_bias,
+                                      mxu_chunk=mxu_chunk, **kw)
+            else:
+                sbins = proposal_bins(*rows, *props, s0=s0, s1=s1, s2=s2, freqs0=f0, freqs1=f1, **kw)
+                rgb_t = field_composite(sbins, *rows, emb, *field, s2=s2, freqs=ff, hdr=cfg.hdr,
+                                        rgb_bias=cfg.rgb_bias, **kw)
             return rgb_t[:, :n].T.contiguous()
         return forward
 
@@ -294,4 +430,5 @@ def make_mega_radiance_query(model, *, disable_box=None, pipelined=False, device
         return _MegaQuery.apply(run, rays.origins, rays.directions, rays.nears, rays.fars,
                                 *[p[k] for k in names])
 
+    query.pipelined, query.mxu_chunk = pipelined, mxu_chunk
     return query

@@ -39,9 +39,11 @@ def make_nerf_emitter_fn(
       dict of its parameters; `detach_nerf` treats the radiance as a
       constant for the caller's backward (the NeRF gets no gradient);
     - `camera_index` picks the appearance embedding;
-    - `use_fused` serves the query through the kernels K3 + K4
-      (ops/mega_query.py) when the model lives on CUDA; on the CPU the
-      model's own forward serves it (the reference's TPU-backend gate);
+    - `use_fused` serves the query through the kernel query
+      (ops/mega_query.py: K5, or K3 + K4 under
+      NERF_EMITTER_MEGA_PIPELINED=0, read when this is called) when the
+      model lives on CUDA; on the CPU the model's own forward serves it
+      (the reference's TPU-backend gate);
     - `samples_override` = (proposal_0, proposal_1, nerf) replaces the
       per-ray sample schedule for the emitter query only; counts must be
       multiples of 8.
@@ -49,9 +51,9 @@ def make_nerf_emitter_fn(
     The rotater and the multi-device mesh paths are later slices.
     """
     if rotater is not None:
-        raise NotImplementedError("the rotater path is not ported yet (ROADMAP.md, Queue 1 item 3)")
+        raise NotImplementedError("the rotater path is not ported yet (ROADMAP.md, Queue 1 item 1)")
     if mesh is not None or data_axis is not None:
-        raise NotImplementedError("the multi-device query is not ported yet (ROADMAP.md, Queue 1 item 10)")
+        raise NotImplementedError("the multi-device query is not ported yet (ROADMAP.md, Queue 1 item 7)")
     if samples_override is not None:
         p0, p1, ns = samples_override
         if any(s % 8 != 0 for s in (p0, p1, ns)):

@@ -1,4 +1,4 @@
-"""The plain twins of the port's four kernels against the JAX package's
+"""The plain twins of the port's first four kernels against the JAX package's
 Pallas kernels (interpret mode on the CPU) on the same inputs and weights.
 
 K1 `fused_density` and K2 `fused_field`: through the JAX custom_vjp
@@ -29,6 +29,7 @@ from nerf_emitter_tpu.ops import fused_field as jff
 from nerf_emitter_tpu.ops import mega_query as jmq
 from nerf_emitter_tpu_torch.ops import fused_field as tff
 from nerf_emitter_tpu_torch.ops import mega_query as tmq
+from nerf_emitter_tpu_torch.ops.resample import resample
 
 torch.set_num_threads(1)
 
@@ -238,7 +239,8 @@ def test_k4_field_composite_twin_matches_pallas(box):
     _close(out, ref, rtol=2e-3, atol=1e-5)
 
 
-@pytest.mark.parametrize("kernel", ["fused_density", "fused_field", "proposal_bins", "field_composite"])
+@pytest.mark.parametrize("kernel", ["fused_density", "fused_field", "proposal_bins", "field_composite",
+                                    "mega_pipeline", "proposal_variant", "resample"])
 def test_wrappers_use_the_twin_only_on_the_cpu(kernel):
     """A tensor that is not on the CPU goes to the kernel, never to the
     twin: on a device that has no kernel the wrapper raises."""
@@ -260,6 +262,13 @@ def test_wrappers_use_the_twin_only_on_the_cpu(kernel):
         "field_composite": lambda: tmq.field_composite(torch.empty(S2 + 1, 128, device=meta), *rows, emb,
                                                        bws, bbs, hws, hbs, s2=S2, freqs=10, hdr=True,
                                                        rgb_bias=0.0, **box),
+        "mega_pipeline": lambda: tmq.mega_pipeline(*rows, emb, ws, bs, ws, bs, bws, bbs, hws, hbs, s0=S0,
+                                                   s1=S1, s2=S2, freqs0=4, freqs1=4, freqs=10, hdr=True,
+                                                   rgb_bias=0.0, **box),
+        "proposal_variant": lambda: tmq.proposal_variant(*rows, ws, bs, ws, bs, mode="dens-only", s0=S0,
+                                                         s1=S1, s2=S2, freqs0=4, freqs1=4, **box),
+        "resample": lambda: resample(torch.empty(S0, 128, device=meta), torch.empty(S0 + 1, 128, device=meta),
+                                     pos, torch.empty(4, 64, device=meta), n_out=2, form="walk"),
     }
     with pytest.raises(ValueError, match="CUDA tensor"):
         calls[kernel]()

@@ -112,8 +112,8 @@ def test_entry_points_default_to_cuda(builder):
 
 def test_query_builders_refuse_what_the_kernels_do_not_compute():
     pm = NerfactoModel(AABB, device="cpu", **CFG)
-    with pytest.raises(NotImplementedError, match="K5"):
-        make_mega_radiance_query(pm, pipelined=True, device="cpu")
+    pipelined = make_mega_radiance_query(pm, pipelined=True, device="cpu")  # K5 is ported
+    assert pipelined.pipelined and pipelined.mxu_chunk == 1
     nonlinear = NerfactoModel(AABB, device="cpu", use_fake_contraction=False, **CFG)
     for build in (make_fused_radiance_query, make_mega_radiance_query):
         with pytest.raises(ValueError, match="fake_contraction"):
@@ -161,7 +161,7 @@ def test_two_kernel_query_matches_jax_and_staged():
     jm, params, pm = _pair(n=150)
     jr, tr = _both(_rays_np(150, seed=3))
     ref = j_mega_query(jm, pipelined=False)(params, jr, camera_index=jnp.int32(1))
-    mega = make_mega_radiance_query(pm, device="cpu")
+    mega = make_mega_radiance_query(pm, pipelined=False, device="cpu")
     out = mega(pm, tr, camera_index=1)
     assert out.shape == (150, 3)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=3e-2, atol=1e-3)
@@ -236,7 +236,8 @@ def test_two_kernel_query_splits_off_the_background():
                    fars=torch.full((n, 1), far), camera_indices=torch.ones(n, 1, dtype=torch.long))
     tr = aabb_far_intersect_collider(tr, torch.tensor(OBJECT_BOX), far=far)
     with torch.no_grad():
-        out = make_mega_radiance_query(pm, disable_box=OBJECT_BOX, device="cpu")(pm, tr, camera_index=1)
+        out = make_mega_radiance_query(pm, disable_box=OBJECT_BOX, pipelined=False, device="cpu")(
+            pm, tr, camera_index=1)
         p = tff.named_params(pm)
         rows = [t.T.contiguous() for t in (tr.origins, tr.directions, tr.nears, tr.fars)]
         kw = dict(aabb_lo=(-1.5,) * 3, aabb_inv_ext=(1 / 3,) * 3, disable_box=OBJECT_BOX, avg_density=1.0)
