@@ -4,7 +4,8 @@
 
 Builds the port's kernels from nerf_emitter_tpu_torch/csrc with nvcc, holds
 each kernel against its plain PyTorch twin at the shapes its path gives it,
-answers 2^16 escaped emitter rays at the full width of the sdf-nerfacto
+runs the wgmma field MLP of K4 and K5 alone (held layer by layer, timed per
+layer kind beside a bf16 torch.matmul chain), answers 2^16 escaped emitter rays at the full width of the sdf-nerfacto
 `freq` model (random weights from --seed) through the default kernel query
 (K5), and through the two-kernel query (K3 + K4), checks the answer against
 the model's plain forward, runs a backward pass through the query, and runs
@@ -36,6 +37,7 @@ SAMPLES = (256, 96)
 NERF_SAMPLES = 48
 RAYS = 1 << 16  # escaped rays per emitter query, a multiple of the 128-ray tile
 CHECK_RAYS = 4096  # rays held against the model forward, and differentiated
+ODD_RAYS = 1003  # a ray count that leaves a part-filled group and pass in K4 and K5
 
 
 def emit(obj) -> None:
@@ -79,6 +81,21 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops = flops / H100_BF16_FLOPS
     t_bytes = nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ptxas_of(report: str, kernel: str) -> dict:
+    """Registers, stack frame and spill bytes that ptxas reported for the
+    entry function whose name contains `kernel`."""
+    out, inside = {}, False
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            inside = kernel in ln
+        elif inside and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out.update(stack_frame=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif inside and "Used" in ln and "registers" in ln:
+            out["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
 
 
 def mlp_macs(ws) -> int:
@@ -287,10 +304,16 @@ def main() -> int:
         moved = mq.field_composite(up, *rows, emb, *field, **k4)
         return float(((moved - out).abs() / out.abs().clamp(min=1e-3)).max())
 
+    def first(t, m=ODD_RAYS):
+        return t[:, :m].contiguous()
+
     def k4_checks(a, b):
         with torch.no_grad():
             a4 = mq.field_composite(sbins4, *rows4, emb, *field, **k4)
             b4 = mq._plain_field_composite(sbins4, *rows4, emb, *field, **k4)
+            odd = [first(t) for t in (sbins4, *rows4)]
+            a_odd = mq.field_composite(*odd, emb, *field, **k4)
+            b_odd = mq._plain_field_composite(*odd, emb, *field, **k4)
             rows = (o_t, d_t, near_t, far_t)
             fg_a, acc_a = split(*mq.field_composite(sbins, *rows, emb, *field, **k4, with_aux=True))
             fg_b, acc_b = split(*mq._plain_field_composite(sbins, *rows, emb, *field, **k4, with_aux=True))
@@ -299,7 +322,20 @@ def main() -> int:
                     "foreground_far1e3": close(fg_a, fg_b, rtol=1e-2, atol=1e-3),
                     "acc_far1e3": close(acc_a, acc_b, rtol=1e-2, atol=1e-3),
                     "rgb_far4": close(a4, b4, rtol=1e-2, atol=1e-3)
-                    | {"one_ulp_bin_shift_rel": ulp_shift(sbins4, rows4, a4)}}
+                    | {"one_ulp_bin_shift_rel": ulp_shift(sbins4, rows4, a4)},
+                    f"rgb_far4_{ODD_RAYS}_rays": close(a_odd, b_odd, rtol=1e-2, atol=1e-3)}
+
+    def design(source, kernel, occupancy=None, smem_host=None):
+        """A kernel's ptxas report and, given its launcher's occupancy, its
+        launch shape; its shared memory as the launcher sizes it must equal
+        the host's count and fit a block."""
+        out = dict(ptxas=ptxas_of(info["ptxas"].get(source, ""), kernel))
+        if occupancy is not None:
+            per_sm, sms, smem = occupancy
+            if smem != smem_host or smem > kernels.SMEM_LIMIT:
+                raise AssertionError(f"{kernel}: shared memory {smem} (host count {smem_host})")
+            out |= dict(blocks_per_sm=per_sm, sms=sms, smem_bytes=smem)
+        return out
 
     kernel_phase(
         "field_composite", "nerf_emitter_tpu/ops/mega_query.py:731",
@@ -307,6 +343,8 @@ def main() -> int:
         lambda: mq.field_composite(sbins, o_t, d_t, near_t, far_t, emb, *field, **k4),
         lambda: mq._plain_field_composite(sbins, o_t, d_t, near_t, far_t, emb, *field, **k4),
         k4_checks, k4_flops, n * (s2 + 1 + 8 + 3) * 4.0, reps=3,
+        design=design("field_composite", "field_composite_kernel", kernels.field_composite_occupancy(s2),
+                      kernels.field_composite_smem_bytes(s2)),
     )
 
     # K5 on the main path's rays. Against K4 on K3's bins at the JAX
@@ -362,10 +400,12 @@ def main() -> int:
             aux_a = mq.mega_pipeline(*rows, emb, *props, *field, **k5, with_aux=True)[1]
             aux_b = mq._plain_mega_pipeline(*rows, emb, *props, *field, **k5, with_aux=True)[1]
             chunk3 = mq.mega_pipeline(*rows, emb, *props, *field, **k5, mxu_chunk=3)
+            odd = mq.mega_pipeline(*[first(t) for t in rows4], emb, *props, *field, **k5)
             on_k3_bins = mq._plain_field_composite(sbins, *rows, emb, *field, **k4)
         (fg_a, acc_a), (fg_b, acc_b) = split(a, aux_a), split(b, aux_b)
         return {"vs_k3_k4_far1e3": same(a, k34), "vs_k3_k4_far4": same(a4, k34_4),
                 "mxu_chunk3_vs_1": same(chunk3, a),
+                f"vs_k3_k4_far4_{ODD_RAYS}_rays": same(odd, first(k34_4)),
                 "twin_far4": close(a4, b4, rtol=3e-2, atol=1e-3),
                 "twin_foreground_far1e3": close(fg_a, fg_b, rtol=1e-2, atol=1e-3),
                 "twin_acc_far1e3": close(acc_a, acc_b, rtol=1e-2, atol=1e-3),
@@ -376,18 +416,102 @@ def main() -> int:
                 "twin_rgb_far1e3_shared_rgb_last":
                     close(a, fg_b + aux_a[1:] * (1.0 - acc_b), rtol=1e-1, atol=1e-3)}
 
-    packed = [kernels.PackedMlp(w, b, device=w[0].device)
-              for w, b in ((w0p, bs0), (w1p, bs1), (bwp, bbs), (hws, hbs))]
-    per_sm, sms = kernels.mega_pipeline_occupancy(mq.mega_ld(*packed), s0, s1, s2)
-    del packed
+    ld5 = mq.mega_ld(*[kernels.PackedMlp(w, b, device=w[0].device) for w, b in ((w0p, bs0), (w1p, bs1))])
     kernel_phase(
         "mega_pipeline", "nerf_emitter_tpu/ops/mega_query.py:677",
         "nerf_emitter_tpu_torch/csrc/mega_pipeline.cu",
         lambda: mq.mega_pipeline(*rows, emb, *props, *field, **k5),
         lambda: mq._plain_mega_pipeline(*rows, emb, *props, *field, **k5),
-        k5_checks, k3_flops + k4_flops, n * (8 + 3) * 4.0, reps=3, blocks_per_sm=per_sm, sms=sms,
+        k5_checks, k3_flops + k4_flops, n * (8 + 3) * 4.0, reps=3,
+        design=design("mega_pipeline", "mega_pipeline_kernel",
+                      kernels.mega_pipeline_occupancy(ld5, s0, s1, s2),
+                      kernels.mega_pipeline_smem_bytes(ld5, s0, s1, s2)),
     )
     del sbins4, k34_4
+
+    # ---- the wgmma field MLP of K4 and K5 alone (csrc/field_mlp.cu), on
+    # the encodings of random scene points and the SH of random directions:
+    # held against its twin (a bf16-operand, f32-accumulate chain) after its
+    # first layer and after the whole MLP, first on 8191 rows, then at the
+    # field's shape (2^16 x 48 rows), where each depth is timed (the launch
+    # alone, on packed weights, writing nothing): the differences give each
+    # layer's time. Beside it
+    # the same layers as bf16 torch.matmul calls (bias and ReLU included),
+    # a yardstick the port never calls. After the whole MLP the bar (K2's)
+    # is held on what the field makes of the raw outputs, as K2's is: the
+    # HDR colour exp(raw) and the density exp(raw - 1) (each raw value's
+    # error is then a relative one); the raw outputs themselves, where f32
+    # sums in another order leave ~1e-3 on values near 0, are reported.
+    def mlp_rows(m):
+        x2 = torch.rand((3, m), generator=g, device=dev) * 2.0 - 1.0
+        dirs = torch.randn((3, m), generator=g, device=dev)
+        sh = ff._sh4_rows(dirs / dirs.norm(dim=0, keepdim=True)).T.contiguous()
+        return ff._freq_rows_fmajor(x2, 10).T.contiguous(), sh
+
+    n_layers = len(bws) + len(hws)
+    mlp_w = (bwp, bbs, hws, hbs)
+
+    def mlp_checks(x, sh, tag):
+        def at(dep):
+            return (mq.field_mlp(x, sh, emb, *mlp_w, depth=dep),
+                    mq._plain_field_mlp(x, sh, emb, *mlp_w, depth=dep))
+        (a1, b1), (ab, bb), (a, b) = at(1), at(len(bws)), at(n_layers)
+        return {f"first_layer_{tag}": close(a1, b1, rtol=1e-2, atol=1e-4),
+                f"density_{tag}": close(torch.exp(ab[:, 0] - 1.0), torch.exp(bb[:, 0] - 1.0),
+                                        rtol=1e-2, atol=1e-4),
+                f"rgb_{tag}": close(torch.exp(a), torch.exp(b), rtol=1e-2, atol=1e-4),
+                f"raw_out_{tag}": close(a, b, rtol=1e-2, atol=1e-4) | {"held": False}}
+
+    with torch.no_grad():
+        xs, shs = mlp_rows(8191)  # a part-filled last pass
+        small = mlp_checks(xs, shs, "8191_rows")
+        del xs, shs
+    if not all(c["within"] for c in small.values() if c.get("held", True)):
+        emit(dict(phase="field_mlp", checks=small))
+        raise AssertionError(f"field_mlp: disagrees with its twin: {small}")
+    xf, shf = mlp_rows(m2)
+    kernels.reset_launches()
+    with torch.no_grad():
+        mq.field_mlp(xf, shf, emb, *mlp_w)
+        torch.cuda.synchronize()
+    mlp_launches = dict(kernels.launches)
+    pack = kernels.FieldPack(*mlp_w, emb.shape[0], device=xf.device)
+    xb = torch.zeros(m2, pack.k0, dtype=torch.bfloat16, device=dev)
+    xb[:, : xf.shape[1]] = xf
+    mlp_out = torch.empty(m2, 3, device=dev)
+    depth_ms = [cuda_ms(lambda dep=dep: mq.launch_field_mlp(pack, xb, shf, emb, dep), 10)
+                for dep in range(1, n_layers + 1)]
+    steps = [depth_ms[0]] + [b - a for a, b in zip(depth_ms, depth_ms[1:])]
+    nb = len(bws)
+    layer_ms = {"base_first": steps[0], "base_hidden": steps[1:nb - 1], "base_out": steps[nb - 1],
+                "head_hidden": steps[nb:n_layers - 1], "head_out_reduce": steps[n_layers - 1]}
+    bf = torch.bfloat16
+    chain = [(w.to(bf), b.to(bf)) for w, b in zip((*bwp, *hws), (*bbs, *hbs))]
+
+    def gemm_chain():
+        h = xf.to(bf)
+        for i, (w, b) in enumerate(chain):
+            h = torch.addmm(b, h, w)
+            if i not in (nb - 1, n_layers - 1):
+                h = torch.relu_(h)
+            if i == nb - 1:
+                h = torch.cat([shf.to(bf), h[:, 1:], emb.to(bf)[None].expand(m2, -1)], dim=1)
+        return h
+
+    gemm_chain_ms = cuda_ms(gemm_chain, 3)
+    mlp_flops = 2.0 * m2 * (mlp_macs(bws) + mlp_macs(hws))
+    kernel_phase(
+        "field_mlp", "nerf_emitter_tpu/ops/fused_field.py:119",
+        "nerf_emitter_tpu_torch/csrc/field_mlp.cu",
+        lambda: mq.launch_field_mlp(pack, xb, shf, emb, n_layers, mlp_out),
+        lambda: mq._plain_field_mlp(xf, shf, emb, *mlp_w),
+        lambda a, b: mlp_checks(xf, shf, "full_rows") | small,
+        mlp_flops, m2 * (64 * 2 + 16 * 4 + 3 * 4.0), reps=3,
+        rows=m2, depth_ms=depth_ms, layer_ms=layer_ms, gemm_chain_ms=gemm_chain_ms,
+        gemm_chain_tflops=mlp_flops / gemm_chain_ms * 1e-9,
+        design=design("field_mlp", "field_mlp_kernel") | dict(smem_bytes=kernels.field_smem_bytes()),
+    )
+    del xf, shf, xb, pack, mlp_out, chain
 
     # ---- phase 3: the main path, 2^16 escaped rays through
     # make_nerf_emitter_fn, which builds the default query: K5
@@ -564,9 +688,10 @@ def main() -> int:
 
     # ---- phase 7: the kernels line. K5 carries the query (phase 3), K3 and
     # K4 the two-kernel query (phase 3), K1 and K2 the backward (phase 4),
+    # the field MLP alone its own phase (one launch at the field's shape),
     # P1-P3 the profiling scripts (phase 6); each reports its launches in
     # the run of its own path.
-    path_of = {"mega_pipeline": "query", "proposal": "two_kernel_query",
+    path_of = {"mega_pipeline": "query", "proposal": "two_kernel_query", "field_mlp": "field_mlp",
                "field_composite": "two_kernel_query", "fused_density": "backward",
                "fused_field": "backward", "profile_query.kernel_a": "profile_query",
                "profile_query.kernel_b": "profile_query"}
@@ -574,7 +699,7 @@ def main() -> int:
     path_of |= {f"resample[{f}]": "profile_resample" for f in rs.FORMS}
     counted_as = {"profile_query.kernel_a": "proposal", "profile_query.kernel_b": "field_composite"}
     counts = {"query": fwd_launches, "two_kernel_query": two_launches, "backward": bwd_launches,
-              **script_launches}
+              "field_mlp": mlp_launches, **script_launches}
     line = {"kernels": [
         {k: results[name][k] for k in ("name", "route", "source", "replaces")}
         | {"path": path_of[name], "launches": counts[path_of[name]].get(counted_as.get(name, name), 0)}

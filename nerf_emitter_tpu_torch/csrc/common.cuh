@@ -1,7 +1,12 @@
 // Pieces the emitter-query kernels share: the affine scene-box map
 // with keep mask and carve-out box, the frequency encoding by double-angle
 // recurrence, the degree-4 SH basis, the piecewise spacing warp, and one
-// block-wide MLP over a tile of TILE samples.
+// block-wide wmma MLP over a tile of TILE samples.
+//
+// The wmma MLP (`wmma_layer`, `run_mlp`) carries the density MLPs of K1
+// (fused_density.cu), K3 and P2 (proposal.cu) and K5's proposal stage
+// (mega_pipeline.cu), and both MLPs of K2 (fused_field.cu). The field MLP
+// of K4 and K5 runs on wgmma instead (field_mlp.cuh).
 //
 // MLP arithmetic follows the TPU kernels (nerf_emitter_tpu/ops/fused_field.py
 // `_mlp_rowsT`): bf16 operands, f32 accumulation (wmma 16x16x16 bf16 tiles on
@@ -10,8 +15,8 @@
 //
 // Activations live in shared memory as bf16 rows (TILE x ld, ld a multiple
 // of 8 elements so every 16-row tile starts 32-byte aligned); weights are
-// read as wmma fragments straight from global memory, where the whole set
-// (1.3 MB for the field) stays resident in L1/L2.
+// read as wmma fragments straight from global memory, where they stay
+// resident in L1/L2.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -80,7 +85,7 @@ inline int last_width(const Mlp& m) { return m.n[m.n_layers - 1]; }
 
 // Shared memory of one MLP tile: two bf16 activation buffers, the f32 output
 // of the last layer (TILE x out_max) and one 16x16 f32 scratch per warp.
-inline size_t mlp_smem_bytes(int ld, int out_max) {
+__host__ __device__ inline size_t mlp_smem_bytes(int ld, int out_max) {
     return 2 * (size_t)TILE * ld * sizeof(bf16) + (size_t)TILE * out_max * sizeof(float) +
            (size_t)WARPS * 256 * sizeof(float);
 }
@@ -222,7 +227,7 @@ __device__ inline void wmma_layer(const bf16* in, int ld_in, int K, const bf16* 
     }
 }
 
-// The output layer of run_mlp / run_mlp_sliced on the last hidden rows
+// The output layer of run_mlp on the last hidden rows
 // `cur`: f32 (TILE x n_last, row stride n_last) into s.out.
 __device__ inline void run_mlp_last(const Mlp& m, const MlpSmem& s, const bf16* cur, int ld) {
     const int L = m.n_layers - 1, n = m.n[L], K = m.k[L];
@@ -250,29 +255,6 @@ __device__ inline void run_mlp(const Mlp& m, const MlpSmem& s, int ld) {
     for (int l = 0; l < m.n_layers - 1; ++l) {
         wmma_layer(cur, ld, m.k[l], m.w[l], m.n[l], m.b[l], nxt, nullptr, ld, s.scratch);
         __syncthreads();
-        bf16* t = cur;
-        cur = nxt;
-        nxt = t;
-    }
-    run_mlp_last(m, s, cur, ld);
-}
-
-// run_mlp with each hidden layer issued as `slices` block-wide passes over
-// contiguous sample (row-tile) slices, each closed by a barrier (clamped to
-// [1, TILE / 16]): the schedule changes, every output element's sum does
-// not. Only K5's field stage runs it (its `mxu_chunk`).
-__device__ inline void run_mlp_sliced(const Mlp& m, const MlpSmem& s, int ld, int slices) {
-    bf16* cur = s.a;
-    bf16* nxt = s.b;
-    constexpr int tiles_m = TILE / 16;
-    slices = min(max(slices, 1), tiles_m);
-    __syncthreads();
-    for (int l = 0; l < m.n_layers - 1; ++l) {
-        for (int c = 0; c < slices; ++c) {
-            wmma_layer(cur, ld, m.k[l], m.w[l], m.n[l], m.b[l], nxt, nullptr, ld, s.scratch,
-                       tiles_m * c / slices, tiles_m * (c + 1) / slices);
-            __syncthreads();
-        }
         bf16* t = cur;
         cur = nxt;
         nxt = t;

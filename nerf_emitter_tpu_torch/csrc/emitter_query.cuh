@@ -24,7 +24,7 @@
 // and move the ray's CDF by a whole sample's weight.
 #pragma once
 
-#include "common.cuh"
+#include "field_mlp.cuh"
 
 namespace nek {
 
@@ -47,12 +47,13 @@ inline size_t proposal_smem_bytes(int ld, int out_max, int smax, int rays) {
     return mlp_smem_bytes(ld, out_max) + sizeof(float) * rays * (4 * (smax + 1) + smax + 8);
 }
 
-__device__ inline ProposalSmem carve_proposal(unsigned char* smem, int ld, int out_max, int smax,
-                                              int rays) {
+// The MLP tile buffers at `mlp`, the per-ray rows at `state`.
+__device__ inline ProposalSmem carve_proposal(unsigned char* mlp, float* state, int ld, int out_max,
+                                              int smax, int rays) {
     ProposalSmem p;
-    p.mlp = carve_mlp_smem(smem, ld, out_max);
+    p.mlp = carve_mlp_smem(mlp, ld, out_max);
     const int row = smax + 1;
-    p.sb_a = p.mlp.scratch + WARPS * 256;
+    p.sb_a = state;
     p.sb_b = p.sb_a + rays * row;
     p.eb = p.sb_b + rays * row;
     p.cdf = p.eb + rays * row;
@@ -60,6 +61,13 @@ __device__ inline ProposalSmem carve_proposal(unsigned char* smem, int ld, int o
     p.ray = p.dens + rays * smax;
     p.end = p.ray + rays * 8;
     return p;
+}
+
+// The per-ray rows right after the MLP tile buffers.
+__device__ inline ProposalSmem carve_proposal(unsigned char* smem, int ld, int out_max, int smax,
+                                              int rays) {
+    return carve_proposal(smem, carve_mlp_smem(smem, ld, out_max).scratch + WARPS * 256, ld, out_max,
+                          smax, rays);
 }
 
 // n+1 spacing bins sb (element stride `stride`) -> euclidean bins eb
@@ -203,54 +211,97 @@ __device__ inline void proposal_group(const ProposalSmem& p, const float* __rest
     proposal_level<MODE>(p, mlp1, bx, F1, s1, s2, n_rays, smax, ld, p.sb_b, p.sb_a, false);
 }
 
-// Kernel B's field for n_rays rays: euclidean bins eb (row stride s2+1),
-// o and d at ray + r * ray_stride. Writes per-sample density into dens
-// (n_rays x s2) and colour into rgb (n_rays x s2 x 3). With SLICED (K5)
-// the base MLP's hidden layers run in base_slices sample slices
-// (run_mlp_sliced); K4 runs the plain run_mlp. All threads call it.
-template <bool SLICED>
-__device__ inline void field_group(const MlpSmem& s, const float* eb, const float* ray,
-                                   int ray_stride, float* dens, float* rgb, int n_rays,
-                                   const Mlp& base, const Mlp& head, const Box& bx,
-                                   const float* __restrict__ emb, int n_emb, int F, int s2, int ld,
-                                   int hdr, float rgb_bias, int base_slices) {
-    const int t = threadIdx.x;
-    const int total = n_rays * s2;
-    for (int c0 = 0; c0 < total; c0 += TILE) {
-        const int j = c0 + t;
-        const bool valid = t < TILE && j < total;
+// Kernel B's field, one pass of 128 samples of a ray group: the rows of
+// field_mlp.cuh `wg_field_pass`. Sample j of the group is ray j / s2, bin
+// j % s2; eb holds the group's euclidean bins (row stride s2+1), ray its
+// o and d at r * ray_stride.
+struct GroupIo {
+    const FieldSmem fs;
+    const Box& bx;
+    const float* eb;
+    const float* ray;
+    float* dens;
+    float* rgb;
+    const float* __restrict__ emb;
+    int ray_stride, c0, total, s2, F, n_emb, hdr;
+    float rgb_bias;
+
+    __device__ int sample(int wg, int row) const { return c0 + wg * WG_ROWS + row; }
+
+    __device__ void encode(unsigned char* slab, int wg, int row, int half, int kpad) const {
+        const int j = sample(wg, row);
+        const bool valid = j < total;
         const int r = valid ? j / s2 : 0, si = valid ? j % s2 : 0;
-        bool keep = false;
-        if (t < TILE) {
-            float p[3] = {0.0f, 0.0f, 0.0f}, x2[3];
-            if (valid) {
-                const float mid = (eb[r * (s2 + 1) + si] + eb[r * (s2 + 1) + si + 1]) / 2.0f;
-                for (int k = 0; k < 3; ++k)
-                    p[k] = __fadd_rn(ray[r * ray_stride + k], __fmul_rn(ray[r * ray_stride + 3 + k], mid));
-            }
-            keep = contract_and_select(bx, p, x2) && valid;
-            freq_encode(s.a + (size_t)t * ld, x2, F, true, base.k[0]);
+        float p[3] = {0.0f, 0.0f, 0.0f}, x2[3];
+        if (valid) {
+            const float mid = (eb[r * (s2 + 1) + si] + eb[r * (s2 + 1) + si + 1]) / 2.0f;
+            for (int k = 0; k < 3; ++k)
+                p[k] = __fadd_rn(ray[r * ray_stride + k], __fmul_rn(ray[r * ray_stride + 3 + k], mid));
         }
-        if constexpr (SLICED)
-            run_mlp_sliced(base, s, ld, base_slices);  // s.out: (TILE, 16)
-        else
-            run_mlp(base, s, ld);
-        if (t < TILE) {
-            if (valid) dens[j] = density_of(s.out[t * 16], keep, bx.avg_density);
-            float sh[16];
-            const float* dr = ray + r * ray_stride + 3;
-            sh4(dr[0], dr[1], dr[2], sh);
-            bf16* hrow = s.a + (size_t)t * ld;
-            for (int q = 0; q < 16; ++q) hrow[q] = __float2bfloat16(sh[q]);
-            for (int q = 1; q < 16; ++q) hrow[15 + q] = __float2bfloat16(s.out[t * 16 + q]);
-            for (int q = 0; q < n_emb; ++q) hrow[31 + q] = __float2bfloat16(emb[q]);
-            for (int q = 31 + n_emb; q < head.k[0]; ++q) hrow[q] = __float2bfloat16(0.0f);
-        }
-        run_mlp(head, s, ld);  // s.out: (TILE, 3)
-        if (valid)
-            for (int k = 0; k < 3; ++k) rgb[j * 3 + k] = rgb_of(s.out[t * 3 + k], hdr, rgb_bias);
-        __syncthreads();
+        const bool keep = contract_and_select(bx, p, x2) && valid;
+        if (half == 0) fs.keep()[wg * WG_ROWS + row] = keep;
+        encode_row(slab, row, half, x2, F, kpad);
     }
+
+    // the head input [SH 16, geo 15 (written by the base output), emb]
+    __device__ void head_in(unsigned char* slab, int wg, int row, int half, int kpad) const {
+        const int j = sample(wg, row);
+        if (half == 0) {
+            const float* dr = ray + (j < total ? j / s2 : 0) * ray_stride + 3;
+            float sh[16];
+            sh4(dr[0], dr[1], dr[2], sh);
+            for (int q = 0; q < 16; ++q) st_bf16(slab, row, q, sh[q]);
+        } else {
+            for (int q = 0; q < n_emb; ++q) st_bf16(slab, row, 31 + q, emb[q]);
+            for (int q = 31 + n_emb; q < kpad; ++q) st_bf16(slab, row, q, 0.0f);
+        }
+    }
+
+    __device__ void density(int wg, int row, float raw) const {
+        const int j = sample(wg, row);
+        if (j < total) dens[j] = density_of(raw, fs.keep()[wg * WG_ROWS + row], bx.avg_density);
+    }
+
+    __device__ void colour(int wg, int row, int o, float raw) const {
+        const int j = sample(wg, row);
+        if (j < total) rgb[j * 3 + o] = rgb_of(raw, hdr, rgb_bias);
+    }
+
+    __device__ void base_value(int, int, int, float) const {}
+    __device__ void dump(const unsigned char*, int, int, int, int, int) const {}
+};
+
+// passes of the field for a group of n_rays rays of s2 samples
+__host__ __device__ inline int field_passes(int n_rays, int s2) {
+    return (n_rays * s2 + PASS_ROWS - 1) / PASS_ROWS;
+}
+
+// chunks the block's ring takes over the groups g = first, first + stride,
+// ... below `groups` (rays per group `rays`, n rays in all)
+__device__ inline int ring_total(long long first, long long stride, long long groups, long long n,
+                                 int rays, int s2, int per_pass) {
+    int total = 0;
+    for (long long g = first; g < groups; g += stride)
+        total += field_passes((int)min((long long)rays, n - g * rays), s2) * per_pass;
+    return total;
+}
+
+// Kernel B's field for the n_rays rays of a group: per-sample density into
+// dens (n_rays x s2) and colour into rgb (n_rays x s2 x 3), in passes of
+// 128 samples through the wgmma field (field_mlp.cuh). All threads call it;
+// it ends with a barrier.
+__device__ inline void field_group(Ring& ring, const FieldMlp& fm, const FieldSmem& fs,
+                                   const float* eb, const float* ray, int ray_stride, float* dens,
+                                   float* rgb, int n_rays, const Box& bx,
+                                   const float* __restrict__ emb, int n_emb, int F, int s2, int hdr,
+                                   float rgb_bias) {
+    const int total = n_rays * s2;
+    for (int c0 = 0; c0 < total; c0 += PASS_ROWS) {
+        const GroupIo io{fs, bx, eb, ray, dens, rgb, emb, ray_stride, c0, total, s2, F, n_emb, hdr,
+                         rgb_bias};
+        wg_field_pass(ring, fm, fs, io, FIELD_MAX_LAYERS + 1);
+    }
+    __syncthreads();
 }
 
 // One ray's composite from its euclidean bins e (s2+1), densities and

@@ -9,29 +9,30 @@
 // scratch to keep its vector unit busy behind the matrix unit. On the card
 // blocks run in parallel and nothing carries between them.
 //
-// Design: a persistent kernel, two blocks of 8 warps per SM. Each block
-// loops over groups of 4 rays; for each group it runs
-// emitter_query.cuh `proposal_group` (K3) into shared memory, converts the
-// final spacing bins to euclidean bins in place, and runs `field_group` and
-// `composite_ray` (K4) straight from them. The A/B overlap comes from the
-// two co-resident blocks being in different stages. Shared memory: the MLP
-// tile buffers at the field's row stride (2 x 64 x 264 bf16, 78 KB) serve
-// both stages; the proposal state (bins, CDF, densities: 5 KB a ray) is
-// reused by the field stage for its euclidean bins and densities, and only
-// the per-sample colours (0.6 KB a ray) are added: about 100 KB a block.
+// Design: a persistent kernel, one block of two warpgroups per SM, looping
+// over groups of 8 rays. For each group it runs emitter_query.cuh
+// `proposal_group` (K3, the block-wide wmma MLP) into shared memory,
+// converts the final spacing bins to euclidean bins, and runs `field_group`
+// and `composite_ray` (K4: the wgmma field of field_mlp.cuh) straight from
+// them. The field's weight ring is filled once at the start and runs on
+// across groups, so the first chunks of a group's field stage arrive while
+// its proposal stage runs. Shared memory at the sdf-nerfacto widths and
+// samples (256, 96, 48), 211,904 bytes: the ring (3 x 32 KB), the two
+// field slabs (64 KB), which the proposal stage's wmma tile buffers alias
+// (43 KB at its row stride of 136), the rows' keep flags and raw densities,
+// the proposal state of 8 rays (bins, CDF, densities: 41 KB; the field
+// stage reuses its euclidean bins and densities) and the per-sample
+// colours (4.6 KB).
 //
-// mxu_chunk: the base MLP's hidden layers of the field stage run as
-// mxu_chunk block-wide passes over sample slices of each 64-sample tile,
-// each closed by a barrier (common.cuh `run_mlp_sliced`; clamped to 4), as
-// the TPU kernel splits the same layers into column (sample) slices. Every
-// output element's sum is unchanged, so the answer is bit-identical for
-// every value; only the schedule changes, and on the H100 each value above
-// 1 only adds barriers and time. K3, K4 and the proposal stage here run
-// the unsliced `run_mlp`.
+// mxu_chunk: the TPU kernel's column (sample) slices of the field's hidden
+// matmuls have no counterpart here: a wgmma pass is 128 samples whatever
+// the value, so the launcher does not take it and the answer is the same
+// for every value.
 //
 // Bit equality with K3 + K4: every f32 step comes from the same device
 // functions, and per-sample MLP rows do not depend on which samples share
-// a tile, so the bins equal K3's and the answer equals K4's on them.
+// a tile or a pass (K4 and K5 also use the same 8-ray groups), so the bins
+// equal K3's and the answer equals K4's on them.
 //
 // Bound on an H100: operations, the sum of K3's and K4's MLP work (0.19 +
 // 1.85 ms of bf16 tensor-core time at 2^16 rays), against 32 bytes in and
@@ -40,30 +41,41 @@
 
 using namespace nek;
 
-constexpr int GROUP = 4;          // rays per group
-constexpr int BLOCKS_PER_SM = 2;
+constexpr int GROUP = FIELD_RAYS;  // rays per group
 
 static int smax_of(int s0, int s1, int s2) {
     return s0 > s1 ? (s0 > s2 ? s0 : s2) : (s1 > s2 ? s1 : s2);
 }
 
-static size_t mega_smem_bytes(int ld, int smax, int s2) {
-    return proposal_smem_bytes(ld, 16, smax, GROUP) + sizeof(float) * GROUP * s2 * 3;
+// the slabs' region, shared with the proposal stage's wmma tile buffers
+__host__ __device__ static size_t slab_region(int ld) {
+    const size_t mlp = mlp_smem_bytes(ld, 1);
+    return mlp > 2 * SLAB_BYTES ? mlp : 2 * SLAB_BYTES;
 }
 
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+static size_t mega_smem_bytes(int ld, int smax, int s2) {
+    return field_smem_bytes(slab_region(ld)) +
+           sizeof(float) * GROUP * (4 * (smax + 1) + smax + 8) + sizeof(float) * GROUP * s2 * 3;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 mega_pipeline_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ near, const float* __restrict__ far,
                      const float* __restrict__ emb, int n_emb, long long n, Mlp mlp0, Mlp mlp1,
-                     Mlp base, Mlp head, Box bx, int F0, int F1, int Ff, int s0, int s1, int s2,
-                     int ld, int hdr, float rgb_bias, int mxu_chunk, float* __restrict__ rgb_out,
+                     const __grid_constant__ FieldMlp fm,
+                     const __grid_constant__ Box bx, int F0, int F1, int Ff, int s0,
+                     int s1, int s2, int ld, int hdr, float rgb_bias, float* __restrict__ rgb_out,
                      float* __restrict__ aux_out) {
-    extern __shared__ __align__(128) unsigned char smem[];
+    extern __shared__ __align__(1024) unsigned char smem[];
     const int smax = max(s0, max(s1, s2)), row = smax + 1;
-    ProposalSmem p = carve_proposal(smem, ld, 16, smax, GROUP);
+    const FieldSmem fs = carve_field(smem);
+    ProposalSmem p = carve_proposal(fs.slab(0), reinterpret_cast<float*>(smem + field_smem_bytes(slab_region(ld))),
+                                    ld, 1, smax, GROUP);
     float* rgb = p.end;  // GROUP x s2 x 3
     const int t = threadIdx.x;
     const long long groups = (n + GROUP - 1) / GROUP;
+    Ring ring = ring_start(fs, fm, fm.n_chunks,
+                           ring_total(blockIdx.x, gridDim.x, groups, n, GROUP, s2, fm.n_chunks));
     for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
         const long long r0 = g * GROUP;
         const int n_rays = (int)min((long long)GROUP, n - r0);
@@ -74,8 +86,8 @@ mega_pipeline_kernel(const float* __restrict__ o, const float* __restrict__ d,
             euclid_bins(p.eb + t * (s2 + 1), p.sb_a + t * row, 1, s2, p.ray[t * 8 + 6],
                         p.ray[t * 8 + 7]);
         __syncthreads();
-        field_group<true>(p.mlp, p.eb, p.ray, 8, p.dens, rgb, n_rays, base, head, bx, emb, n_emb,
-                          Ff, s2, ld, hdr, rgb_bias, mxu_chunk);
+        field_group(ring, fm, fs, p.eb, p.ray, 8, p.dens, rgb, n_rays, bx, emb, n_emb, Ff, s2, hdr,
+                    rgb_bias);
         if (t < n_rays)
             composite_ray(p.eb + t * (s2 + 1), p.dens + t * s2, rgb + t * s2 * 3, s2, n, r0 + t,
                           rgb_out, aux_out);
@@ -85,60 +97,42 @@ mega_pipeline_kernel(const float* __restrict__ o, const float* __restrict__ d,
 
 NEK_ERROR_STRING_FN
 
-// Blocks of the kernel that fit on one SM at these sizes, and the SM count.
-// Asked of the runtime once per (device, shared memory size): the launcher
-// calls it on every query.
+static Occupancy occ;
+
+// Blocks of the kernel that fit on one SM at these sizes, the SM count and
+// the kernel's dynamic shared memory; `ld` is the proposal MLPs' row stride.
 extern "C" int nek_mega_pipeline_occupancy(int ld, int s0, int s1, int s2, int* blocks_per_sm,
-                                           int* sms) {
-    static int cached_dev = -1, cached_per_sm = 0, cached_sms = 0;
-    static size_t cached_smem = 0;
-    const size_t smem = mega_smem_bytes(ld, smax_of(s0, s1, s2), s2);
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    if (dev != cached_dev || smem != cached_smem) {
-        e = cudaFuncSetAttribute(mega_pipeline_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-        if (e != cudaSuccess) return (int)e;
-        e = cudaDeviceGetAttribute(&cached_sms, cudaDevAttrMultiProcessorCount, dev);
-        if (e != cudaSuccess) return (int)e;
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached_per_sm, mega_pipeline_kernel,
-                                                          THREADS, smem);
-        if (e != cudaSuccess) return (int)e;
-        cached_dev = dev;
-        cached_smem = smem;
-    }
-    *blocks_per_sm = cached_per_sm;
-    *sms = cached_sms;
-    return (int)cudaSuccess;
+                                           int* sms, long long* smem) {
+    const size_t bytes = mega_smem_bytes(ld, smax_of(s0, s1, s2), s2);
+    const cudaError_t e = occupancy(mega_pipeline_kernel, bytes, &occ);
+    *blocks_per_sm = occ.per_sm;
+    *sms = occ.sms;
+    *smem = (long long)bytes;
+    return (int)e;
 }
 
 extern "C" int nek_mega_pipeline(const float* o, const float* d, const float* near,
                                  const float* far, const float* emb, int n_emb, long long n,
                                  const int* dims0, const long long* ptrs0, const int* dims1,
-                                 const long long* ptrs1, const int* base_dims,
-                                 const long long* base_ptrs, const int* head_dims,
-                                 const long long* head_ptrs, const float* box, int F0, int F1,
+                                 const long long* ptrs1, const int* field_dims,
+                                 const long long* field_ptrs, const float* box, int F0, int F1,
                                  int Ff, int s0, int s1, int s2, int ld, int hdr, float rgb_bias,
-                                 int mxu_chunk, float* rgb_out, float* aux_out, void* stream) {
+                                 float* rgb_out, float* aux_out, void* stream) {
     Mlp mlp0 = make_mlp(dims0, ptrs0), mlp1 = make_mlp(dims1, ptrs1);
-    Mlp base = make_mlp(base_dims, base_ptrs), head = make_mlp(head_dims, head_ptrs);
-    if (last_width(mlp0) != 1 || last_width(mlp1) != 1 || last_width(base) != 16 ||
-        last_width(head) != 3 || head.k[0] < 31 + n_emb || s0 < 2 || s1 < 2 || s2 < 1 ||
-        mxu_chunk < 1)
+    FieldMlp fm;
+    if (last_width(mlp0) != 1 || last_width(mlp1) != 1 || !make_field_mlp(field_dims, field_ptrs, &fm) ||
+        fm.n_last != 3 || fm.layer[fm.n_base].k < 31 + n_emb || s0 < 2 || s1 < 2 || s2 < 1)
         return (int)cudaErrorInvalidValue;
-    int per_sm = 0, sms = 0;
-    int e = nek_mega_pipeline_occupancy(ld, s0, s1, s2, &per_sm, &sms);
-    if (e != (int)cudaSuccess) return e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const size_t smem = mega_smem_bytes(ld, smax_of(s0, s1, s2), s2);
+    cudaError_t e = occupancy(mega_pipeline_kernel, smem, &occ);
+    if (e != cudaSuccess) return (int)e;
+    if (occ.per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     const long long groups = (n + GROUP - 1) / GROUP;
-    const long long resident = (long long)per_sm * sms;
+    const long long resident = (long long)occ.per_sm * occ.sms;
     const long long blocks = groups < resident ? groups : resident;
     if (blocks > 0)
-        mega_pipeline_kernel<<<(unsigned)blocks, THREADS,
-                               mega_smem_bytes(ld, smax_of(s0, s1, s2), s2),
-                               (cudaStream_t)stream>>>(
-            o, d, near, far, emb, n_emb, n, mlp0, mlp1, base, head, make_box(box), F0, F1, Ff, s0,
-            s1, s2, ld, hdr, rgb_bias, mxu_chunk, rgb_out, aux_out);
+        mega_pipeline_kernel<<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(
+            o, d, near, far, emb, n_emb, n, mlp0, mlp1, fm, make_box(box), F0, F1, Ff, s0, s1, s2,
+            ld, hdr, rgb_bias, rgb_out, aux_out);
     return (int)cudaGetLastError();
 }

@@ -39,6 +39,7 @@ SOURCES = {
     "proposal_variant": "proposal.cu",
     "field_composite": "field_composite.cu",
     "mega_pipeline": "mega_pipeline.cu",
+    "field_mlp": "field_mlp.cu",
     "resample": "resample.cu",
 }
 NVCC_FLAGS = [
@@ -47,17 +48,17 @@ NVCC_FLAGS = [
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _PI, _PLL, _PF = ctypes.POINTER(_I), ctypes.POINTER(_LL), ctypes.POINTER(_F)
-_MLP = [_PI, _PLL]  # dims, pointers (PackedMlp.args)
+_MLP = [_PI, _PLL]  # dims, pointers (PackedMlp.args, FieldPack.args)
 # C launcher `nek_<kernel>` of each kernel -> argument types; every launcher
 # ends with the stream and returns cudaGetLastError()
 SIGNATURES = {
     "fused_density": [_P, _LL, *_MLP, _PF, _I, _I, _P, _P],
     "fused_field": [_P, _P, _P, _I, _LL, *_MLP, *_MLP, _PF, _I, _I, _I, _F, _P, _P, _P],
     "proposal": [_P, _P, _P, _P, _LL, *_MLP, *_MLP, _PF, _I, _I, _I, _I, _I, _I, _P, _P],
-    "field_composite":
-        [_P, _P, _P, _P, _P, _P, _I, _LL, *_MLP, *_MLP, _PF, _I, _I, _I, _I, _F, _P, _P, _P],
-    "mega_pipeline": [_P, _P, _P, _P, _P, _I, _LL, *_MLP, *_MLP, *_MLP, *_MLP, _PF, _I, _I, _I,
-                      _I, _I, _I, _I, _I, _F, _I, _P, _P, _P],
+    "field_composite": [_P, _P, _P, _P, _P, _P, _I, _LL, *_MLP, _PF, _I, _I, _I, _F, _P, _P, _P],
+    "mega_pipeline": [_P, _P, _P, _P, _P, _I, _LL, *_MLP, *_MLP, *_MLP, _PF, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _F, _P, _P, _P],
+    "field_mlp": [_P, _I, _P, _P, _I, _LL, *_MLP, _I, _P, _P],
     "resample": [_I, _P, _P, _P, _LL, _I, _I, _I, _P, _P],
 }
 SIGNATURES["proposal_variant"] = [_I, *SIGNATURES["proposal"]]
@@ -92,7 +93,8 @@ def _source_hash() -> str:
 def build() -> dict:
     """Compile every kernel source (in parallel) unless this set of sources
     is already built; load the libraries. Returns build_info: the build
-    directory, seconds spent and each source's ptxas report."""
+    directory, seconds spent, the sources compiled now and each source's
+    ptxas report (saved beside the library when it was built)."""
     if _libs:
         return build_info
     out_dir = BUILD_ROOT / _source_hash()
@@ -120,6 +122,10 @@ def build() -> dict:
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    for stem in {Path(src).stem for src in SOURCES.values()} - reports.keys():
+        log = out_dir / f"{stem}.log"  # built earlier: its saved report
+        if log.exists():
+            reports[stem] = log.read_text()
     for name, src in SOURCES.items():
         lib = ctypes.CDLL(str(out_dir / f"lib{Path(src).stem}.so"))
         lib.nek_error_string.restype = ctypes.c_char_p
@@ -133,19 +139,29 @@ def build() -> dict:
     return build_info
 
 
-def mega_pipeline_occupancy(ld: int, s0: int, s1: int, s2: int) -> tuple[int, int]:
-    """(blocks of K5 resident per SM, SM count) at these row stride and
-    sample counts, as its launcher sizes its persistent grid."""
+def _occupancy(name: str, *args) -> tuple[int, int, int]:
     build()
-    fn = _libs["mega_pipeline"].nek_mega_pipeline_occupancy
-    fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib = _libs[name]
+    fn = getattr(lib, f"nek_{name}_occupancy")
+    fn.argtypes = [_I] * len(args) + [ctypes.POINTER(_I), ctypes.POINTER(_I), ctypes.POINTER(_LL)]
     fn.restype = ctypes.c_int
-    per_sm, sms = _I(0), _I(0)
-    rc = fn(ld, s0, s1, s2, ctypes.byref(per_sm), ctypes.byref(sms))
+    per_sm, sms, smem = _I(0), _I(0), _LL(0)
+    rc = fn(*args, ctypes.byref(per_sm), ctypes.byref(sms), ctypes.byref(smem))
     if rc != 0:
-        msg = _libs["mega_pipeline"].nek_error_string(rc).decode()
-        raise RuntimeError(f"mega_pipeline occupancy: {msg}")
-    return per_sm.value, sms.value
+        raise RuntimeError(f"{name} occupancy: {lib.nek_error_string(rc).decode()}")
+    return per_sm.value, sms.value, smem.value
+
+
+def mega_pipeline_occupancy(ld: int, s0: int, s1: int, s2: int) -> tuple[int, int, int]:
+    """(blocks of K5 resident per SM, SM count, dynamic shared memory bytes)
+    at the proposal MLPs' row stride `ld` and these sample counts, as its
+    launcher sizes its persistent grid."""
+    return _occupancy("mega_pipeline", ld, s0, s1, s2)
+
+
+def field_composite_occupancy(s2: int) -> tuple[int, int, int]:
+    """The same for K4 at s2 samples per ray."""
+    return _occupancy("field_composite", s2)
 
 
 # ---------------------------------------------------------------------------
@@ -225,12 +241,169 @@ class PackedMlp:
         wl[: self.k_real[-1]] = ws[-1].detach()
         self._keep.append(wl)
         ptrs.append(wl.data_ptr())
-        self.ld = max([self.k[0]] + self.n[:-1]) + 8
+        self.ld = mlp_ld([w.shape for w in ws])
         self._dims = (ctypes.c_int * (1 + 2 * n_layers))(n_layers, *self.k, *self.n)
         self._ptrs = (ctypes.c_longlong * len(ptrs))(*ptrs)
 
     def args(self):
         return self._dims, self._ptrs
+
+
+def mlp_ld(shapes) -> int:
+    """The activation row stride of common.cuh's wmma MLP for layers of
+    these (in, out) shapes: the widest padded input or hidden width, plus 8."""
+    k0 = -(-shapes[0][0] // 16) * 16
+    return max([k0] + [s[1] for s in shapes[:-1]]) + 8
+
+
+def mlp_smem_bytes(ld: int, out_max: int) -> int:
+    """common.cuh `mlp_smem_bytes`: two bf16 TILE x ld buffers, the f32
+    output, one 16x16 f32 scratch per warp."""
+    return 2 * MLP_TILE * ld * 2 + MLP_TILE * out_max * 4 + MLP_WARPS * 256 * 4
+
+
+# ---------------------------------------------------------------------------
+# the wgmma field of K4 and K5 (csrc/field_mlp.cuh)
+# ---------------------------------------------------------------------------
+
+# constants of csrc/common.cuh and csrc/field_mlp.cuh
+MLP_TILE, MLP_WARPS = 64, 8
+WG_ROWS = 64  # rows per consumer warpgroup
+PASS_ROWS = 2 * WG_ROWS  # rows per pass
+RING = 3  # weight stages
+STAGE_BYTES = 32768
+SLAB_COLS = 256
+SLAB_BYTES = WG_ROWS * SLAB_COLS * 2
+FIELD_MAX_LAYERS = 16
+FIELD_MAX_CHUNKS = 64
+FIELD_RAYS = 8  # rays per K4 block / K5 group
+FIELD_PRE = 1024 + 64  # mbarriers, keep flags and raw densities below the ring
+HIDDEN_WIDTHS = (64, 128, 256)  # the wgmma shapes the field takes
+BASE_OUT, HEAD_OUT = 16, 3  # density + 15 geo features; rgb
+SH_GEO = 31  # SH (16) and geo (15) columns ahead of the appearance vector
+SMEM_LIMIT = 232448  # dynamic shared memory a block can have on an H100
+
+
+def _pad64(k: int) -> int:
+    return -(-k // 64) * 64
+
+
+def check_field_widths(base_shapes, head_shapes, n_emb: int | None = None) -> None:
+    """Raise ValueError unless the wgmma field of K4 and K5 takes an MLP of
+    these (in, out) layer shapes: a base MLP of at least one hidden layer
+    and a 16-wide output, a head over [SH 16, geo 15, appearance n_emb] with
+    at least one hidden layer and a 3-wide output; hidden widths in
+    HIDDEN_WIDTHS; first-layer inputs padded to a multiple of 64 at most
+    SLAB_COLS wide."""
+    base = [tuple(int(x) for x in s) for s in base_shapes]
+    head = [tuple(int(x) for x in s) for s in head_shapes]
+    for name, mlp, out in (("base", base, BASE_OUT), ("head", head, HEAD_OUT)):
+        if len(mlp) < 2:
+            raise ValueError(f"wgmma field: the {name} MLP needs a hidden layer, got {len(mlp)} layer(s)")
+        if mlp[-1][1] != out:
+            raise ValueError(f"wgmma field: the {name} MLP must end {out} wide, got {mlp[-1][1]}")
+        for i, (k, n) in enumerate(mlp[:-1]):
+            if n not in HIDDEN_WIDTHS:
+                raise ValueError(f"wgmma field: {name} layer {i} is {n} wide; hidden widths must be one "
+                                 f"of {HIDDEN_WIDTHS}")
+        for i in range(1, len(mlp)):
+            if mlp[i][0] != mlp[i - 1][1]:
+                raise ValueError(f"wgmma field: {name} layer {i} takes {mlp[i][0]} inputs after a "
+                                 f"{mlp[i - 1][1]}-wide layer")
+        if _pad64(mlp[0][0]) > SLAB_COLS:
+            raise ValueError(f"wgmma field: the {name} MLP's input ({mlp[0][0]} wide) must pad to at "
+                             f"most {SLAB_COLS}")
+    if head[0][0] < SH_GEO or (n_emb is not None and head[0][0] != SH_GEO + n_emb):
+        raise ValueError(f"wgmma field: the head takes [SH 16, geo 15, appearance], got "
+                         f"{head[0][0]} inputs" + ("" if n_emb is None else f" for {n_emb} appearance"))
+    layers = [(_pad64(k), n) for k, n in base + head[:-1]]
+    if len(layers) > FIELD_MAX_LAYERS:
+        raise ValueError(f"wgmma field: {len(layers)} layers, at most {FIELD_MAX_LAYERS}")
+    chunks = sum(k // 64 // kb_per_chunk(k, n) for k, n in layers)
+    if chunks > FIELD_MAX_CHUNKS:
+        raise ValueError(f"wgmma field: {chunks} weight chunks per pass, at most {FIELD_MAX_CHUNKS}")
+
+
+def kb_per_chunk(k_pad: int, n: int) -> int:
+    """64-row K blocks of a layer (k_pad, n) per stream chunk: the most that
+    divide the layer's and fit one ring stage."""
+    kb = k_pad // 64
+    return max(d for d in range(1, kb + 1) if kb % d == 0 and d * n * 128 <= STAGE_BYTES)
+
+
+def pack_wgmma_layer(w: torch.Tensor) -> torch.Tensor:
+    """A (k, n) weight as the shared-memory image wgmma reads for B: W^T in
+    bf16 with k zero-padded to a multiple of 64, in 64-K blocks of n rows x
+    128 bytes, the 16-byte chunk c of row j stored at chunk c ^ (j % 8).
+    Flat bf16."""
+    k, n = w.shape
+    kp = _pad64(k)
+    wt = torch.zeros(n, kp, dtype=torch.bfloat16, device=w.device)
+    wt[:, :k] = w.detach().T
+    kb = kp // 64
+    blocks = wt.reshape(n, kb, 8, 8).permute(1, 0, 2, 3)  # (kb, row, chunk, 8)
+    stored = torch.arange(8, device=w.device)[None, :] ^ (torch.arange(n, device=w.device) % 8)[:, None]
+    return blocks.gather(2, stored[None, :, :, None].expand(kb, n, 8, 8)).reshape(-1)
+
+
+class FieldPack:
+    """The field's base and head MLPs, (in, out) float32 weights with
+    f-major first-layer rows in the base, laid out for csrc/field_mlp.cuh
+    `FieldMlp`: every layer but the head's output as `pack_wgmma_layer`
+    images, concatenated into one stream whose chunks (`chunks`: byte
+    offset and size, in pass order) the kernels' ring loads; the f32
+    biases; the head's output layer as f32 (its reduce). Raises ValueError
+    on widths the field does not take (`check_field_widths`)."""
+
+    def __init__(self, bws, bbs, hws, hbs, n_emb: int, *, device):
+        check_field_widths([w.shape for w in bws], [w.shape for w in hws], n_emb)
+        for t in (*bws, *bbs, *hws, *hbs):
+            if t.device != device:
+                raise ValueError("MLP weights must be on the kernel's device")
+        pairs = list(zip(bws, bbs)) + list(zip(hws[:-1], hbs[:-1]))
+        self.layers = [(_pad64(w.shape[0]), w.shape[1], kb_per_chunk(_pad64(w.shape[0]), w.shape[1]))
+                       for w, _ in pairs]
+        self.stream = torch.cat([pack_wgmma_layer(w) for w, _ in pairs])
+        self.chunks = []
+        off = 0
+        for k, n, kbc in self.layers:
+            for _ in range(k // 64 // kbc):
+                self.chunks.append((off, kbc * n * 128))
+                off += kbc * n * 128
+        biases = [b.detach().float().contiguous() for _, b in pairs]
+        self.w_last = hws[-1].detach().float().contiguous()
+        self.b_last = hbs[-1].detach().float().contiguous()
+        self.k0 = self.layers[0][0]
+        self._keep = [self.stream, *biases, self.w_last, self.b_last]
+        dims = [len(bws), len(hws) - 1, *(x for layer in self.layers for x in layer),
+                *self.w_last.shape, 2 * self.stream.numel()]
+        self._dims = (ctypes.c_int * len(dims))(*dims)
+        self._ptrs = (ctypes.c_longlong * len(self._keep))(*[t.data_ptr() for t in self._keep])
+
+    def args(self):
+        return self._dims, self._ptrs
+
+
+def field_smem_bytes(slab_bytes: int = 2 * SLAB_BYTES) -> int:
+    """field_mlp.cuh `field_smem_bytes`: alignment slack, the mbarriers and
+    per-row keep flags and raw densities (FIELD_PRE), the ring, the slabs'
+    region."""
+    return 1024 + FIELD_PRE + RING * STAGE_BYTES + slab_bytes
+
+
+def field_composite_smem_bytes(s2: int) -> int:
+    """K4's dynamic shared memory (field_composite.cu): the field stage and
+    per ray its euclidean bins, densities, colours and o, d."""
+    return field_smem_bytes() + 4 * FIELD_RAYS * ((s2 + 1) + 4 * s2 + 6)
+
+
+def mega_pipeline_smem_bytes(ld: int, s0: int, s1: int, s2: int) -> int:
+    """K5's (mega_pipeline.cu): the field stage with its slabs' region
+    shared by the proposal stage's wmma buffers at row stride `ld`, the
+    proposal state per ray and the per-sample colours."""
+    smax = max(s0, s1, s2)
+    return (field_smem_bytes(max(2 * SLAB_BYTES, mlp_smem_bytes(ld, 1)))
+            + 4 * FIELD_RAYS * (4 * (smax + 1) + smax + 8) + 4 * FIELD_RAYS * s2 * 3)
 
 
 def launch(name: str, *args, count_as: str | None = None) -> None:

@@ -8,7 +8,8 @@ out for profiling.
     final spacing bins (s2+1, N). csrc/proposal.cu.
   K4 (field): bins -> positions -> base MLP + SH / appearance head ->
     weights -> composite with the last-sample background -> rgb (3, N).
-    csrc/field_composite.cu.
+    csrc/field_composite.cu; its MLP is the wgmma field of
+    csrc/field_mlp.cuh, which `field_mlp` runs alone on given rows.
   K5: K3 then K4 per ray group in one launch; the bins stay in shared
     memory. csrc/mega_pipeline.cu.
 
@@ -22,7 +23,8 @@ walks the CDF and interpolates within the segment, which is the same
 piecewise-linear function without that cancellation.
 
 Each kernel has a plain PyTorch twin (`_plain_proposal`,
-`_plain_field_composite`, `_plain_mega_pipeline`, `_plain_proposal_variant`)
+`_plain_field_composite`, `_plain_mega_pipeline`, `_plain_proposal`'s
+modes for P2, `_plain_field_mlp`)
 that the wrappers use for CPU tensors only. Gradients of the query
 recompute through the staged query (ops/fused_field.py), whose kernels'
 own backward recomputes through their twins.
@@ -215,15 +217,10 @@ def _plain_field_composite(sbins, o_t, d_t, near_t, far_t, emb, bws, bbs, hws, h
 
 def _check_field(o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs):
     """Check the rays and the appearance vector for a field kernel (K4,
-    K5); pack the field's MLPs."""
+    K5); pack the field's MLPs for the wgmma field."""
     _check_rays(o_t, d_t, near_t, far_t)
     kernels.check_tensor(emb, "emb", ndim=1)
-    base = kernels.PackedMlp(bws, bbs, device=o_t.device)
-    head = kernels.PackedMlp(hws, hbs, device=o_t.device)
-    if base.n[-1] != 16 or head.n[-1] != 3 or head.k_real[0] != 31 + emb.shape[0]:
-        raise ValueError("field kernel takes a 16-wide base output (density + 15 geo) and a "
-                         "3-wide head over [sh16, geo15, emb]")
-    return base, head
+    return kernels.FieldPack(bws, bbs, hws, hbs, emb.shape[0], device=o_t.device)
 
 
 def field_composite(sbins, o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs, *, s2, freqs,
@@ -240,18 +237,16 @@ def field_composite(sbins, o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs, *, 
         return _plain_field_composite(sbins, o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs, **kw)
     n = o_t.shape[1]
     kernels.check_tensor(sbins, "sbins", ndim=2, rows=s2 + 1, cols=n)
-    base, head = _check_field(o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs)
+    field = _check_field(o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs)
     out = torch.empty(3, n, dtype=torch.float32, device=o_t.device)
     aux = torch.empty(4, n, dtype=torch.float32, device=o_t.device) if with_aux else None
     kernels.launch(
         "field_composite",
         kernels.ptr(sbins), kernels.ptr(o_t), kernels.ptr(d_t), kernels.ptr(near_t),
         kernels.ptr(far_t), kernels.ptr(emb), kernels.i32(emb.shape[0]), kernels.i64(n),
-        *base.args(), *head.args(),
-        kernels.box_consts(aabb_lo, aabb_inv_ext, disable_box, avg_density),
-        kernels.i32(freqs), kernels.i32(s2), kernels.i32(max(base.ld, head.ld)),
-        kernels.i32(int(hdr)), kernels.f32(rgb_bias), kernels.ptr(out),
-        kernels.ptr(aux) if with_aux else None,
+        *field.args(), kernels.box_consts(aabb_lo, aabb_inv_ext, disable_box, avg_density),
+        kernels.i32(freqs), kernels.i32(s2), kernels.i32(int(hdr)), kernels.f32(rgb_bias),
+        kernels.ptr(out), kernels.ptr(aux) if with_aux else None,
     )
     return (out, aux) if with_aux else out
 
@@ -281,9 +276,11 @@ def mega_pipeline(o_t, d_t, near_t, far_t, emb, ws0, bs0, ws1, bs1, bws, bbs, hw
     """Kernel K5: rays o_t, d_t (3, N), near_t, far_t (1, N) and one
     appearance vector (E,) -> rgb (3, N), and with `with_aux` also (acc,
     rgb_last) as (4, N): K3's bins and K4's field and composite in one
-    launch, equal to K4 on K3's bins. `mxu_chunk` cuts the field's base-MLP
-    hidden layers into that many sample-slice passes (csrc/mega_pipeline.cu);
-    the answer does not depend on it."""
+    launch, equal to K4 on K3's bins. `mxu_chunk` (>= 1) is the reference's
+    count of sample slices per hidden-layer matmul; it is checked and has
+    no effect: the wgmma field always runs 128-sample passes
+    (csrc/mega_pipeline.cu), so the answer and the schedule are the same
+    for every value."""
     kw = dict(s0=s0, s1=s1, s2=s2, freqs0=freqs0, freqs1=freqs1, freqs=freqs, aabb_lo=aabb_lo,
               aabb_inv_ext=aabb_inv_ext, disable_box=disable_box, avg_density=avg_density, hdr=hdr,
               rgb_bias=rgb_bias, with_aux=with_aux)
@@ -293,7 +290,7 @@ def mega_pipeline(o_t, d_t, near_t, far_t, emb, ws0, bs0, ws1, bs1, bws, bbs, hw
         return _plain_mega_pipeline(o_t, d_t, near_t, far_t, emb, ws0, bs0, ws1, bs1, bws, bbs, hws,
                                     hbs, **kw)
     n = o_t.shape[1]
-    base, head = _check_field(o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs)
+    field = _check_field(o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs)
     mlp0 = kernels.PackedMlp(ws0, bs0, device=o_t.device)
     mlp1 = kernels.PackedMlp(ws1, bs1, device=o_t.device)
     out = torch.empty(3, n, dtype=torch.float32, device=o_t.device)
@@ -302,19 +299,101 @@ def mega_pipeline(o_t, d_t, near_t, far_t, emb, ws0, bs0, ws1, bs1, bws, bbs, hw
         "mega_pipeline",
         kernels.ptr(o_t), kernels.ptr(d_t), kernels.ptr(near_t), kernels.ptr(far_t),
         kernels.ptr(emb), kernels.i32(emb.shape[0]), kernels.i64(n),
-        *mlp0.args(), *mlp1.args(), *base.args(), *head.args(),
+        *mlp0.args(), *mlp1.args(), *field.args(),
         kernels.box_consts(aabb_lo, aabb_inv_ext, disable_box, avg_density),
         kernels.i32(freqs0), kernels.i32(freqs1), kernels.i32(freqs), kernels.i32(s0),
-        kernels.i32(s1), kernels.i32(s2), kernels.i32(mega_ld(mlp0, mlp1, base, head)),
-        kernels.i32(int(hdr)), kernels.f32(rgb_bias), kernels.i32(mxu_chunk), kernels.ptr(out),
+        kernels.i32(s1), kernels.i32(s2), kernels.i32(mega_ld(mlp0, mlp1)),
+        kernels.i32(int(hdr)), kernels.f32(rgb_bias), kernels.ptr(out),
         kernels.ptr(aux) if with_aux else None,
     )
     return (out, aux) if with_aux else out
 
 
-def mega_ld(*mlps) -> int:
-    """K5's activation row stride: the widest of its four MLPs'."""
-    return max(m.ld for m in mlps)
+def mega_ld(mlp0, mlp1) -> int:
+    """K5's wmma row stride, that of its proposal stage: the wider of its two
+    proposal MLPs' (`kernels.PackedMlp.ld`). The field stage runs on wgmma
+    slabs of its own layout; the proposal stage's buffers share their
+    memory (kernels.mega_pipeline_smem_bytes)."""
+    return max(mlp0.ld, mlp1.ld)
+
+
+def check_query_shapes(p: dict, s0: int, s1: int, s2: int) -> None:
+    """Raise ValueError unless K4 and K5 take the model of named parameters
+    `p` at these sample counts: the wgmma field takes its widths
+    (`kernels.check_field_widths`) and both kernels' shared memory fits a
+    block."""
+    shapes = {k: [w.shape for w in _mlp_params(p, k)[0]]
+              for k in ("proposal_0.mlp", "proposal_1.mlp", "field.base_mlp", "field.head_mlp")}
+    kernels.check_field_widths(shapes["field.base_mlp"], shapes["field.head_mlp"])
+    ld = max(kernels.mlp_ld(shapes["proposal_0.mlp"]), kernels.mlp_ld(shapes["proposal_1.mlp"]))
+    for name, need in (("K4", kernels.field_composite_smem_bytes(s2)),
+                       ("K5", kernels.mega_pipeline_smem_bytes(ld, s0, s1, s2))):
+        if need > kernels.SMEM_LIMIT:
+            raise ValueError(f"{name} needs {need} bytes of shared memory at samples "
+                             f"({s0}, {s1}, {s2}), more than a block's {kernels.SMEM_LIMIT}")
+
+
+# ---------------------------------------------------------------------------
+# the field MLP alone (K4's and K5's field stage)
+# ---------------------------------------------------------------------------
+
+
+def _plain_field_mlp(x, sh, emb, bws, bbs, hws, hbs, *, depth=None):
+    """Twin of the field MLP alone: x (m, k) base input rows, sh (m, 16)
+    SH rows, emb (E,) -> the output of the first `depth` layers (the base
+    MLP's, then the head's; all of them by default) with the kernels'
+    arithmetic (`_kernel_mlp`): bf16 activations after a hidden layer (as
+    f32), the f32 base output, or the head's raw f32 output (m, 3)."""
+    bf = torch.bfloat16
+    layers = list(zip((*bws, *hws), (*bbs, *hbs)))
+    depth = len(layers) if depth is None else depth
+    h = x[:, : bws[0].shape[0]].to(bf).float()
+    for i, (w, b) in enumerate(layers[:depth]):
+        if i == len(bws):  # the head's input: [SH, geo, emb]
+            h = torch.cat([sh, h[:, 1:], emb[None, :].expand(h.shape[0], -1)], dim=1).to(bf).float()
+        if i == len(layers) - 1:
+            h = h @ w + b  # the f32 reduce keeps the weight in f32
+        elif i == len(bws) - 1:
+            h = h @ w.to(bf).float() + b
+        else:
+            h = torch.relu((h @ w.to(bf).float() + b).to(bf)).float()
+    return h
+
+
+def field_mlp(x, sh, emb, bws, bbs, hws, hbs, *, depth=None):
+    """The wgmma field MLP of K4 and K5 alone (csrc/field_mlp.cu) on rows x
+    (m, k) float32 (the base MLP's input; rounded to bf16 and zero-padded to
+    the first layer's width), sh (m, 16) and emb (E,): the output of
+    `_plain_field_mlp` at the same `depth`. The twin serves CPU tensors; a
+    CUDA tensor launches the kernel."""
+    n_layers = len(bws) + len(hws)
+    depth = n_layers if depth is None else depth
+    if not 1 <= depth <= n_layers:
+        raise ValueError(f"depth must be in [1, {n_layers}], got {depth}")
+    if x.device.type == "cpu":
+        return _plain_field_mlp(x, sh, emb, bws, bbs, hws, hbs, depth=depth)
+    m = x.shape[0]
+    kernels.check_tensor(x, "x", ndim=2, rows=m)
+    kernels.check_tensor(sh, "sh", ndim=2, rows=m, cols=16)
+    kernels.check_tensor(emb, "emb", ndim=1)
+    pack = kernels.FieldPack(bws, bbs, hws, hbs, emb.shape[0], device=x.device)
+    xb = torch.zeros(m, pack.k0, dtype=torch.bfloat16, device=x.device)
+    xb[:, : bws[0].shape[0]] = x[:, : bws[0].shape[0]]
+    out = torch.empty(m, [w.shape[1] for w in (*bws, *hws)][depth - 1], dtype=torch.float32,
+                      device=x.device)
+    launch_field_mlp(pack, xb, sh, emb, depth, out)
+    return out
+
+
+def launch_field_mlp(pack, xb, sh, emb, depth, out=None):
+    """One launch of the field MLP alone on packed weights (`kernels.FieldPack`)
+    and bf16 rows xb (m, pack.k0); with out None nothing is written (how
+    chip_smoke.py times each depth)."""
+    kernels.launch(
+        "field_mlp", kernels.ptr(xb), kernels.i32(pack.k0), kernels.ptr(sh), kernels.ptr(emb),
+        kernels.i32(emb.shape[0]), kernels.i64(xb.shape[0]), *pack.args(), kernels.i32(depth),
+        kernels.ptr(out) if out is not None else None,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -380,19 +459,22 @@ def make_mega_radiance_query(model, *, disable_box=None, pipelined=None, mxu_chu
     camera for all rays.
 
     pipelined=True runs the whole query as K5; False runs K3 then K4. The
-    answer is the same either way. mxu_chunk > 1 cuts K5's field hidden
-    layers into that many sample-slice passes: the answer is the same, only
-    the schedule changes, and on an H100 each value above 1 only adds
-    barriers and time (it is kept for the reference's knob). Both default
-    from NERF_EMITTER_MEGA_PIPELINED (default "1") and
+    answer is the same either way. mxu_chunk is the reference's knob (its
+    column slices per hidden-layer matmul): it is checked, kept and passed
+    to K5, which has no counterpart of those slices (its wgmma field runs
+    128-sample passes), so no value changes the answer or the schedule.
+    Both default from NERF_EMITTER_MEGA_PIPELINED (default "1") and
     NERF_EMITTER_MEGA_MXU_CHUNK (default "1"), read here, once: changing the
     environment after the query is built does not change it. The query
     carries the values it was built with as `.pipelined` and `.mxu_chunk`.
-    `device=None` means CUDA."""
+    A field whose widths the wgmma field does not take, or sample counts
+    whose shared memory does not fit a block, raise ValueError here
+    (`check_query_shapes`). `device=None` means CUDA."""
     pipelined, mxu_chunk = _switches(pipelined, mxu_chunk)
     cfg = _QueryConfig(model, disable_box, device)
     s0, s1 = cfg.n_prop
     s2 = cfg.n_nerf
+    check_query_shapes(named_params(model), s0, s1, s2)
     staged = make_fused_radiance_query(model, disable_box=disable_box, device=device)
     kw = dict(aabb_lo=cfg.aabb_lo, aabb_inv_ext=cfg.aabb_inv_ext, disable_box=cfg.dbox,
               avg_density=1.0)
