@@ -3,15 +3,17 @@
     python3 chip_smoke.py [--seed 0]
 
 Builds the port's kernels from nerf_emitter_tpu_torch/csrc with nvcc, holds
-each kernel against its plain PyTorch twin at the shapes its path gives it,
-runs the wgmma field MLP of K4 and K5 alone (held layer by layer, timed per
-layer kind beside a bf16 torch.matmul chain), answers 2^16 escaped emitter rays at the full width of the sdf-nerfacto
-`freq` model (random weights from --seed) through the default kernel query
-(K5), and through the two-kernel query (K3 + K4), checks the answer against
-the model's plain forward, runs a backward pass through the query, and runs
-the three profiling entry points at their own shapes. Every phase prints
-one JSON line; any failure raises and the script exits non-zero. The last
-line is {"ok": true, "device": {...}}.
+each kernel against its plain PyTorch twin at the shapes its path gives it
+(and at part-filled sizes), runs the wgmma field MLP of K2, K4 and K5 alone
+(held layer by layer, timed per layer kind beside a bf16 torch.matmul
+chain), answers 2^16 escaped emitter rays at the full width of the
+sdf-nerfacto `freq` model (random weights from --seed) through the default
+kernel query (K5), through the two-kernel query (K3 + K4) and through the
+staged query (K1 + K2), checks the answers against the model's plain
+forward, times a backward pass through the query at 2^14 rays, and runs the
+three profiling entry points at their own shapes. Every phase prints one
+JSON line; any failure raises and the script exits non-zero. The last line
+is {"ok": true, "device": {...}}.
 
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -36,8 +38,9 @@ OBJECT_BOX = ((-0.3, -0.3, -0.3), (0.3, 0.3, 0.3))
 SAMPLES = (256, 96)
 NERF_SAMPLES = 48
 RAYS = 1 << 16  # escaped rays per emitter query, a multiple of the 128-ray tile
-CHECK_RAYS = 4096  # rays held against the model forward, and differentiated
-ODD_RAYS = 1003  # a ray count that leaves a part-filled group and pass in K4 and K5
+CHECK_RAYS = 4096  # rays held against the model forward
+BACKWARD_RAYS = 1 << 14  # rays differentiated (the field twin's saved activations grow with them)
+ODD_RAYS = 1003  # leaves a part-filled group and pass in K4 and K5, and part-filled passes in K1 and K2
 
 
 def emit(obj) -> None:
@@ -85,8 +88,10 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
 
 def ptxas_of(report: str, kernel: str) -> dict:
     """Registers, stack frame and spill bytes that ptxas reported for the
-    entry function whose name contains `kernel`."""
-    out, inside = {}, False
+    entry function whose name contains `kernel`, and the count of ptxas's
+    C7519 warnings (a `warpgroup.arrive` it injected) in the source's
+    report (one kernel per source where it is read)."""
+    out, inside = {"c7519": sum("C7519" in ln for ln in report.splitlines())}, False
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
             inside = kernel in ln
@@ -234,22 +239,57 @@ def main() -> int:
         del out_k
         torch.cuda.empty_cache()
 
+    def design(source, kernel, occupancy=None, smem_host=None, rows=None):
+        """A kernel's ptxas report and, given its launcher's occupancy, its
+        launch shape (for K1 and K2, given the rows, their 128-row passes
+        and persistent grid); its shared memory as the launcher sizes it
+        must equal the host's count and fit a block."""
+        out = dict(ptxas=ptxas_of(info["ptxas"].get(source, ""), kernel))
+        if occupancy is not None:
+            per_sm, sms, smem = occupancy
+            if smem != smem_host or smem > kernels.SMEM_LIMIT:
+                raise AssertionError(f"{kernel}: shared memory {smem} (host count {smem_host})")
+            out |= dict(blocks_per_sm=per_sm, sms=sms, smem_bytes=smem)
+            if rows is not None:
+                out |= dict(rows=rows, passes=kernels.row_passes(rows),
+                            grid=kernels.persistent_grid(rows, per_sm, sms))
+        return out
+
+    def first(t, m=ODD_RAYS):
+        return t[:, :m].contiguous()
+
     # K1 at both proposal levels, as the backward runs it (one launch each):
-    # 2^16 x 256 samples with F=4 and 2^16 x 96 samples with F=6
+    # 2^16 x 256 samples with F=4 and 2^16 x 96 samples with F=6; also on
+    # the first 1003 x 256 and 1003 x 96 rows (the latter ends in a
+    # part-filled pass) and 1003 rows (a part-filled warpgroup tile)
     ws0, bs0 = ff._mlp_params(p, "proposal_0.mlp")
     ws1, bs1 = ff._mlp_params(p, "proposal_1.mlp")
     levels = [(torch.rand((3, n * s), generator=g, device=dev) * 3.2 - 1.6, ws, bs, dict(num_freqs=f, **cfg))
               for s, ws, bs, f in ((s0, ws0, bs0, 4), (s1, ws1, bs1, 6))]
+
+    def k1_checks(a, b):
+        # f32 sums in another order can flip a bf16 rounding of a hidden unit
+        out = {f"density_level{i}": close(ai, bi, rtol=1e-2, atol=1e-4) for i, (ai, bi) in enumerate(zip(a, b))}
+        with torch.no_grad():
+            for i, m in ((0, ODD_RAYS * s0), (1, ODD_RAYS * s1), (0, ODD_RAYS)):
+                pos, ws, bs, kw = levels[i]
+                part = first(pos, m)
+                out[f"density_level{i}_{m}_rows"] = close(ff._launch_density(part, ws, bs, **kw),
+                                                          ff._plain_density(part, ws, bs, **kw),
+                                                          rtol=1e-2, atol=1e-4)
+        return out
+
     kernel_phase(
         "fused_density", "nerf_emitter_tpu/ops/fused_field.py:236",
         "nerf_emitter_tpu_torch/csrc/fused_density.cu",
         lambda: [ff._launch_density(pos, ws, bs, **kw) for pos, ws, bs, kw in levels],
         lambda: [ff._plain_density(pos, ws, bs, **kw) for pos, ws, bs, kw in levels],
-        # f32 sums in another order can flip a bf16 rounding of a hidden unit
-        lambda a, b: {f"density_level{i}": close(ai, bi, rtol=1e-2, atol=1e-4)
-                      for i, (ai, bi) in enumerate(zip(a, b))},
+        k1_checks,
         sum(2.0 * pos.shape[1] * mlp_macs(ws) for pos, ws, _, _ in levels),
         sum(pos.shape[1] * 16.0 for pos, _, _, _ in levels), reps=3,
+        design={f"level{i}": design("fused_density", "density_kernel", kernels.fused_density_occupancy(),
+                                    kernels.density_smem_bytes(), rows=pos.shape[1])
+                for i, (pos, _, _, _) in enumerate(levels)},
     )
     del levels
 
@@ -262,14 +302,25 @@ def main() -> int:
     hws, hbs = ff._mlp_params(p, "field.head_mlp")
     emb = p["field.appearance_embedding.weight"][0].contiguous()
     k2 = dict(num_freqs=10, hdr=True, rgb_bias=0.0, **cfg)
+
+    def k2_checks(a, b):
+        out = {"density": close(a[0], b[0], rtol=1e-2, atol=1e-4), "rgb": close(a[1], b[1], rtol=1e-2, atol=1e-4)}
+        m = ODD_RAYS * s2  # ends in a part-filled pass
+        part = (first(pos2, m), first(dirs2, m), emb, bws, bbs, hws, hbs)
+        with torch.no_grad():
+            pa, pb = ff._launch_field(*part, **k2), ff._plain_field(*part, **k2)
+        out |= {f"density_{m}_rows": close(pa[0], pb[0], rtol=1e-2, atol=1e-4),
+                f"rgb_{m}_rows": close(pa[1], pb[1], rtol=1e-2, atol=1e-4)}
+        return out
+
     kernel_phase(
         "fused_field", "nerf_emitter_tpu/ops/fused_field.py:391",
         "nerf_emitter_tpu_torch/csrc/fused_field.cu",
         lambda: ff._launch_field(pos2, dirs2, emb, bws, bbs, hws, hbs, **k2),
         lambda: ff._plain_field(pos2, dirs2, emb, bws, bbs, hws, hbs, **k2),
-        lambda a, b: {"density": close(a[0], b[0], rtol=1e-2, atol=1e-4),
-                      "rgb": close(a[1], b[1], rtol=1e-2, atol=1e-4)},
-        2.0 * m2 * (mlp_macs(bws) + mlp_macs(hws)), m2 * 40.0, reps=3,
+        k2_checks, 2.0 * m2 * (mlp_macs(bws) + mlp_macs(hws)), m2 * 40.0, reps=3,
+        design=design("fused_field", "field_kernel", kernels.fused_field_occupancy(), kernels.field_smem_bytes(),
+                      rows=m2),
     )
     del pos2, dirs2
 
@@ -304,9 +355,6 @@ def main() -> int:
         moved = mq.field_composite(up, *rows, emb, *field, **k4)
         return float(((moved - out).abs() / out.abs().clamp(min=1e-3)).max())
 
-    def first(t, m=ODD_RAYS):
-        return t[:, :m].contiguous()
-
     def k4_checks(a, b):
         with torch.no_grad():
             a4 = mq.field_composite(sbins4, *rows4, emb, *field, **k4)
@@ -324,18 +372,6 @@ def main() -> int:
                     "rgb_far4": close(a4, b4, rtol=1e-2, atol=1e-3)
                     | {"one_ulp_bin_shift_rel": ulp_shift(sbins4, rows4, a4)},
                     f"rgb_far4_{ODD_RAYS}_rays": close(a_odd, b_odd, rtol=1e-2, atol=1e-3)}
-
-    def design(source, kernel, occupancy=None, smem_host=None):
-        """A kernel's ptxas report and, given its launcher's occupancy, its
-        launch shape; its shared memory as the launcher sizes it must equal
-        the host's count and fit a block."""
-        out = dict(ptxas=ptxas_of(info["ptxas"].get(source, ""), kernel))
-        if occupancy is not None:
-            per_sm, sms, smem = occupancy
-            if smem != smem_host or smem > kernels.SMEM_LIMIT:
-                raise AssertionError(f"{kernel}: shared memory {smem} (host count {smem_host})")
-            out |= dict(blocks_per_sm=per_sm, sms=sms, smem_bytes=smem)
-        return out
 
     kernel_phase(
         "field_composite", "nerf_emitter_tpu/ops/mega_query.py:731",
@@ -594,21 +630,71 @@ def main() -> int:
         raise AssertionError(f"K5 query disagrees with the two-kernel query: {pipelined_vs_two}")
     del rgb, rgb_two
 
-    # ---- phase 4: backward through the emitter w.r.t. the ray origins
-    xg = x_unit[:nc].clone().requires_grad_()
+    # ---- the staged query (K1 at both proposal levels, then K2 on the
+    # field's samples), an entry point of its own: the main path's rays,
+    # timed; held against the model's plain forward at far = 4 at the
+    # query's bar, reported at far = 1e3 (see above)
+    staged = ff.make_fused_radiance_query(model, disable_box=OBJECT_BOX, device=dev)
+    full_rays = ray_bundle(1e3)
     kernels.reset_launches()
-    out = emitter(xg, d[:nc])
-    out.sum().backward()
+    with torch.no_grad():
+        rgb_staged = staged(model, full_rays, camera_index=0)
+        torch.cuda.synchronize()
+    staged_launches = dict(kernels.launches)
+    if (staged_launches.get("fused_density", 0) != 2 or staged_launches.get("fused_field", 0) != 1
+            or len(staged_launches) != 2):
+        raise AssertionError(f"the staged query did not run K1 twice and K2 once: {staged_launches}")
+    if rgb_staged.shape != (n, 3) or not bool(torch.isfinite(rgb_staged).all()):
+        raise AssertionError("staged query output is not finite (n, 3)")
+    with torch.no_grad():
+        staged_ms = cuda_ms(lambda: staged(model, full_rays, camera_index=0), 3)
+        staged_far4 = close(staged(model, ray_bundle(4.0, nc), camera_index=0), near_p, rtol=3e-2, atol=1e-3)
+    emit(dict(phase="staged_query", rays=n, ms_per_query=staged_ms, rays_per_s=n / (staged_ms * 1e-3),
+              launches=staged_launches, vs_model_far4=staged_far4,
+              vs_model_far1e3=close(rgb_staged[:nc], ref, rtol=3e-2, atol=1e-3) | {"held": False}))
+    if not staged_far4["within"]:
+        raise AssertionError(f"staged query disagrees with the model forward: {staged_far4}")
+    del rgb_staged, full_rays
+
+    # ---- phase 4: backward through the emitter w.r.t. the ray origins at
+    # 2^14 rays: K5 forward, then the staged recompute (K1 at both levels,
+    # the field through its twin, no K2). Timed forward alone and forward
+    # plus backward; a device trace of one forward plus backward splits it
+    # into K5, K1 and the rest (the twin recompute, sampling and autograd's
+    # PyTorch ops); peak memory of one forward plus backward.
+    nb = BACKWARD_RAYS
+
+    def fwd_bwd():
+        x = x_unit[:nb].clone().requires_grad_()
+        with torch.enable_grad():
+            emitter(x, d[:nb]).sum().backward()
+        return x.grad
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    grad = fwd_bwd()
     torch.cuda.synchronize()
     bwd_launches = dict(kernels.launches)
-    grad_ok = bool(torch.isfinite(xg.grad).all()) and float(xg.grad.abs().sum()) > 0
-    emit(dict(phase="backward", rays=nc, launches=bwd_launches, grad_finite=grad_ok,
-              grad_abs_mean=float(xg.grad.abs().mean())))
-    if bwd_launches.get("fused_density", 0) < 2 or bwd_launches.get("fused_field", 0) < 1:
-        raise AssertionError(f"the backward did not run K1 and K2: {bwd_launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    grad_ok = bool(torch.isfinite(grad).all()) and float(grad.abs().sum()) > 0
+    if bwd_launches.get("fused_density", 0) != 2 or bwd_launches.get("fused_field", 0):
+        raise AssertionError(f"the backward did not run K1 twice and no K2: {bwd_launches}")
     if not grad_ok:
         raise AssertionError("non-finite or zero gradients")
-    del emitter, two_emitter, plain, xg, out
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: emitter(x_unit[:nb], d[:nb]), 3)
+    fwd_bwd_ms = cuda_ms(fwd_bwd, 3)
+    bwd_trace = device_trace(fwd_bwd, calls=1, top=10**6)
+    ranked = sorted(bwd_trace["device_ms_by_name"].items(), key=lambda kv: -kv[1])
+    k5_dev, k1_dev = (sum(v for k, v in ranked if name in k) for name in ("mega_pipeline_kernel", "density_kernel"))
+    bwd_trace["device_ms_by_name"] = dict(ranked[:8]) | {"other": sum(v for _, v in ranked[8:])}
+    emit(dict(phase="backward", rays=nb, launches=bwd_launches, grad_finite=grad_ok,
+              grad_abs_mean=float(grad.abs().mean()), forward_ms=fwd_ms, forward_backward_ms=fwd_bwd_ms,
+              peak_mem_gb=peak_gb,
+              device_split_ms=dict(k5_forward=k5_dev, k1_staged_recompute=k1_dev,
+                                   twin_recompute_and_other=bwd_trace["device_busy_ms"] - k5_dev - k1_dev),
+              trace=bwd_trace))
+    del emitter, two_emitter, plain, staged, grad
     torch.cuda.empty_cache()
 
     # ---- phase 5: the profiling kernels against their twins. K3's bins
@@ -687,18 +773,20 @@ def main() -> int:
         emit(dict(phase=name, **res, launches=script_launches[name], lines=mod.report(res).splitlines()))
 
     # ---- phase 7: the kernels line. K5 carries the query (phase 3), K3 and
-    # K4 the two-kernel query (phase 3), K1 and K2 the backward (phase 4),
+    # K4 the two-kernel query (phase 3), K2 the staged query, K1 the
+    # backward (phase 4) and the staged query,
     # the field MLP alone its own phase (one launch at the field's shape),
     # P1-P3 the profiling scripts (phase 6); each reports its launches in
     # the run of its own path.
     path_of = {"mega_pipeline": "query", "proposal": "two_kernel_query", "field_mlp": "field_mlp",
                "field_composite": "two_kernel_query", "fused_density": "backward",
-               "fused_field": "backward", "profile_query.kernel_a": "profile_query",
+               "fused_field": "staged_query", "profile_query.kernel_a": "profile_query",
                "profile_query.kernel_b": "profile_query"}
     path_of |= {f"proposal_variant[{m}]": "profile_kernel_a" for m in mq.PROPOSAL_MODES}
     path_of |= {f"resample[{f}]": "profile_resample" for f in rs.FORMS}
     counted_as = {"profile_query.kernel_a": "proposal", "profile_query.kernel_b": "field_composite"}
     counts = {"query": fwd_launches, "two_kernel_query": two_launches, "backward": bwd_launches,
+              "staged_query": staged_launches,
               "field_mlp": mlp_launches, **script_launches}
     line = {"kernels": [
         {k: results[name][k] for k in ("name", "route", "source", "replaces")}

@@ -3,10 +3,10 @@
 // recurrence, the degree-4 SH basis, the piecewise spacing warp, and one
 // block-wide wmma MLP over a tile of TILE samples.
 //
-// The wmma MLP (`wmma_layer`, `run_mlp`) carries the density MLPs of K1
-// (fused_density.cu), K3 and P2 (proposal.cu) and K5's proposal stage
-// (mega_pipeline.cu), and both MLPs of K2 (fused_field.cu). The field MLP
-// of K4 and K5 runs on wgmma instead (field_mlp.cuh).
+// The wmma MLP (`wmma_layer`, `run_mlp`) carries the density MLPs of K3
+// and P2 (proposal.cu) and of K5's proposal stage (mega_pipeline.cu), and
+// nothing else. K1's density MLP runs on wgmma (density_mlp.cuh), and the
+// field MLP of K2, K4 and K5 too (field_mlp.cuh).
 //
 // MLP arithmetic follows the TPU kernels (nerf_emitter_tpu/ops/fused_field.py
 // `_mlp_rowsT`): bf16 operands, f32 accumulation (wmma 16x16x16 bf16 tiles on
@@ -127,16 +127,16 @@ __device__ inline bool contract_and_select(const Box& bx, const float p[3], floa
     return sel;
 }
 
-// Writes the 3 + 6F encoding of x2 into row (bf16) and zero-fills up to kpad.
-// k-major rows: [x, sin(dim k, octave i) at 3 + k F + i, cos at 3 + 3F + k F + i];
-// f-major rows: sin at 3 + 3 i + k, cos at 3 + 3F + 3 i + k.
-__device__ inline void freq_encode(bf16* row, const float x2[3], int F, bool fmajor, int kpad) {
+// Writes the 3 + 6F f-major encoding of x2 into row (bf16) and zero-fills
+// up to kpad: [x, sin(dim k, octave i) at 3 + 3 i + k, cos at 3 + 3F + 3 i + k]
+// (the first layer's rows are permuted on the host to match).
+__device__ inline void freq_encode(bf16* row, const float x2[3], int F, int kpad) {
     for (int k = 0; k < 3; ++k) {
         row[k] = __float2bfloat16(x2[k]);
         float th = x2[k] * TWO_PI;
         float s = sinf(th), c = cosf(th);
         for (int i = 0; i < F; ++i) {
-            int r = fmajor ? 3 * i + k : k * F + i;
+            int r = 3 * i + k;
             row[3 + r] = __float2bfloat16(s);
             row[3 + 3 * F + r] = __float2bfloat16(c);
             float s2 = (2.0f * s) * c;

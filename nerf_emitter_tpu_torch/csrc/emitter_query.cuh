@@ -96,7 +96,7 @@ __device__ inline void density_pass(const ProposalSmem& p, const Mlp& mlp, const
                 for (int k = 0; k < 3; ++k) pt[k] = __fadd_rn(ray[k], __fmul_rn(ray[3 + k], mid));
             }
             keep = contract_and_select(bx, pt, x2) && j < total;
-            freq_encode(p.mlp.a + (size_t)t * ld, x2, F, true, mlp.k[0]);
+            freq_encode(p.mlp.a + (size_t)t * ld, x2, F, mlp.k[0]);
         }
         run_mlp(mlp, p.mlp, ld);
         if (t < TILE && c0 + t < total)

@@ -1,4 +1,4 @@
-// The field MLP of K4 and K5 (and of the MLP-alone launcher, field_mlp.cu)
+// The field MLP of K2, K4 and K5 (and of the MLP-alone launcher, field_mlp.cu)
 // on Hopper's warpgroup matrix multiply: the base MLP (encoding -> hidden
 // layers -> 16 = density + 15 geo features) and the colour head
 // ([SH 16, geo 15, appearance E] -> hidden layers -> 3, an f32 reduce),
@@ -30,7 +30,7 @@
 //   read each stage, then each warp arrives on the stage's "empty"
 //   mbarrier. Thread 0 refills a stage once all 8 warps have released it.
 //   There is no producer warp: the block's 256 threads all compute, and the
-//   wmma code that K5's proposal stage shares with K1-K3 keeps its 256
+//   wmma code that K5's proposal stage shares with K3 keeps its 256
 //   threads and its __syncthreads.
 // - The chunk sequence of a pass is the same for every pass, so the ring
 //   runs ahead across passes and ray groups: in K5 the first chunks of a

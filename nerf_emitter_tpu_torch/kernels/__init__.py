@@ -52,8 +52,8 @@ _MLP = [_PI, _PLL]  # dims, pointers (PackedMlp.args, FieldPack.args)
 # C launcher `nek_<kernel>` of each kernel -> argument types; every launcher
 # ends with the stream and returns cudaGetLastError()
 SIGNATURES = {
-    "fused_density": [_P, _LL, *_MLP, _PF, _I, _I, _P, _P],
-    "fused_field": [_P, _P, _P, _I, _LL, *_MLP, *_MLP, _PF, _I, _I, _I, _F, _P, _P, _P],
+    "fused_density": [_P, _LL, _P, _PF, _I, _P, _P],
+    "fused_field": [_P, _P, _P, _I, _LL, *_MLP, _PF, _I, _I, _F, _P, _P, _P],
     "proposal": [_P, _P, _P, _P, _LL, *_MLP, *_MLP, _PF, _I, _I, _I, _I, _I, _I, _P, _P],
     "field_composite": [_P, _P, _P, _P, _P, _P, _I, _LL, *_MLP, _PF, _I, _I, _I, _F, _P, _P, _P],
     "mega_pipeline": [_P, _P, _P, _P, _P, _I, _LL, *_MLP, *_MLP, *_MLP, _PF, _I, _I, _I, _I, _I,
@@ -164,6 +164,16 @@ def field_composite_occupancy(s2: int) -> tuple[int, int, int]:
     return _occupancy("field_composite", s2)
 
 
+def fused_density_occupancy() -> tuple[int, int, int]:
+    """The same for K1."""
+    return _occupancy("fused_density")
+
+
+def fused_field_occupancy() -> tuple[int, int, int]:
+    """The same for K2."""
+    return _occupancy("fused_field")
+
+
 # ---------------------------------------------------------------------------
 # argument helpers
 # ---------------------------------------------------------------------------
@@ -263,7 +273,7 @@ def mlp_smem_bytes(ld: int, out_max: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# the wgmma field of K4 and K5 (csrc/field_mlp.cuh)
+# the wgmma field of K2, K4 and K5 (csrc/field_mlp.cuh)
 # ---------------------------------------------------------------------------
 
 # constants of csrc/common.cuh and csrc/field_mlp.cuh
@@ -289,7 +299,7 @@ def _pad64(k: int) -> int:
 
 
 def check_field_widths(base_shapes, head_shapes, n_emb: int | None = None) -> None:
-    """Raise ValueError unless the wgmma field of K4 and K5 takes an MLP of
+    """Raise ValueError unless the wgmma field of K2, K4 and K5 takes an MLP of
     these (in, out) layer shapes: a base MLP of at least one hidden layer
     and a 16-wide output, a head over [SH 16, geo 15, appearance n_emb] with
     at least one hidden layer and a 3-wide output; hidden widths in
@@ -389,6 +399,71 @@ def field_smem_bytes(slab_bytes: int = 2 * SLAB_BYTES) -> int:
     per-row keep flags and raw densities (FIELD_PRE), the ring, the slabs'
     region."""
     return 1024 + FIELD_PRE + RING * STAGE_BYTES + slab_bytes
+
+
+def row_passes(m: int) -> int:
+    """128-row passes over m rows (K1, K2: two 64-row warpgroup tiles a
+    pass)."""
+    return -(-m // PASS_ROWS)
+
+
+def persistent_grid(m: int, blocks_per_sm: int, sms: int) -> int:
+    """Blocks of K1's or K2's persistent launch over m rows, as their
+    launchers size it: one per pass, at most as many as are resident."""
+    return min(row_passes(m), blocks_per_sm * sms)
+
+
+# ---------------------------------------------------------------------------
+# the wgmma density block of K1 (csrc/density_mlp.cuh)
+# ---------------------------------------------------------------------------
+
+DENSITY_K, DENSITY_N = 64, 128  # padded input width, hidden width
+DENSITY_PACK_BYTES = DENSITY_K * DENSITY_N * 2 + 8 * DENSITY_N + 16  # image, bias, w_out, b_out
+
+
+def check_density_widths(shapes) -> None:
+    """Raise ValueError unless K1's wgmma density block takes a proposal MLP
+    of these (in, out) layer shapes: one hidden layer DENSITY_N wide over an
+    input of at most DENSITY_K, and a 1-wide output."""
+    mlp = [tuple(int(x) for x in s) for s in shapes]
+    if len(mlp) != 2:
+        raise ValueError(f"wgmma density: the proposal MLP needs exactly one hidden layer, got "
+                         f"{len(mlp) - 1}")
+    (k, n), (k_out, n_out) = mlp
+    if n != DENSITY_N:
+        raise ValueError(f"wgmma density: the hidden layer is {n} wide; it must be {DENSITY_N}")
+    if k > DENSITY_K:
+        raise ValueError(f"wgmma density: the input ({k} wide) must be at most {DENSITY_K}")
+    if k_out != n or n_out != 1:
+        raise ValueError(f"wgmma density: the output layer must be ({n}, 1), got ({k_out}, {n_out})")
+
+
+class DensityPack:
+    """A proposal MLP, (in, out) float32 weights with f-major first-layer
+    rows, laid out for csrc/density_mlp.cuh: the hidden layer's
+    `pack_wgmma_layer` image, the f32 hidden bias, the f32 output weight and
+    the output bias zero-padded to 16 bytes, in one byte buffer
+    (`buffer`) that a block loads with one bulk copy. Raises ValueError on
+    widths the block does not take (`check_density_widths`)."""
+
+    def __init__(self, ws, bs, *, device):
+        check_density_widths([w.shape for w in ws])
+        for t in (*ws, *bs):
+            if t.device != device:
+                raise ValueError("MLP weights must be on the kernel's device")
+        b_out = torch.zeros(4, dtype=torch.float32, device=device)
+        b_out[:1] = bs[1].detach()
+        parts = [pack_wgmma_layer(ws[0]), bs[0].detach().float(), ws[1].detach().float()[:, 0], b_out]
+        self.buffer = torch.cat([t.contiguous().view(torch.uint8) for t in parts])
+        assert self.buffer.numel() == DENSITY_PACK_BYTES
+
+
+def density_smem_bytes() -> int:
+    """K1's dynamic shared memory (density_mlp.cuh `DENSITY_SMEM`):
+    alignment slack, the pack padded to 1 KB, two 8 KB slabs, 128 keep
+    flags, the mbarrier."""
+    slabs = -(-DENSITY_PACK_BYTES // 1024) * 1024
+    return 1024 + slabs + 2 * WG_ROWS * DENSITY_K * 2 + PASS_ROWS * 4 + 16
 
 
 def field_composite_smem_bytes(s2: int) -> int:

@@ -5,7 +5,10 @@ Each kernel keeps the whole per-sample pipeline on chip: affine AABB map,
 keep mask and carve-out box, frequency encoding by the double-angle
 recurrence, every MLP layer, the output activation. Only positions and
 directions are read and only densities and colours are written. The CUDA
-sources are csrc/fused_density.cu and csrc/fused_field.cu.
+sources are csrc/fused_density.cu (on the wgmma density block of
+csrc/density_mlp.cuh) and csrc/fused_field.cu (on the wgmma field of
+csrc/field_mlp.cuh). Both encode f-major; the wrappers permute the
+first-layer rows to match (`permute_first`), and the twins stay k-major.
 
 Public functions keep the JAX package's layouts: positions and directions
 are (3, M) and MLP weights are (in, out) float32, as in the flax tree.
@@ -22,6 +25,7 @@ layer at most 4 wide is an f32 reduce with the f32 weight.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -145,16 +149,23 @@ def _plain_density(pos_t, ws, bs, *, num_freqs, aabb_lo, aabb_inv_ext, disable_b
     return _density_of(raw[:, 0], keep, avg_density)
 
 
+def _check_freqs(w0: torch.Tensor, num_freqs: int) -> None:
+    """The first layer must take the 3 + 6F encoding the kernel writes."""
+    if w0.shape[0] != 3 + 6 * num_freqs:
+        raise ValueError(f"first-layer input {w0.shape[0]} is not 3+6F for F={num_freqs}")
+
+
 def _launch_density(pos_t, ws, bs, *, num_freqs, aabb_lo, aabb_inv_ext, disable_box, avg_density):
     kernels.check_tensor(pos_t, "pos_t", ndim=2, rows=3)
+    _check_freqs(ws[0], num_freqs)
     m = pos_t.shape[1]
-    mlp = kernels.PackedMlp(ws, bs, device=pos_t.device)
+    pack = kernels.DensityPack(permute_first(ws, num_freqs), bs, device=pos_t.device)
     box = kernels.box_consts(aabb_lo, aabb_inv_ext, disable_box, avg_density)
     out = torch.empty(m, dtype=torch.float32, device=pos_t.device)
     kernels.launch(
         "fused_density",
-        kernels.ptr(pos_t), kernels.i64(m), *mlp.args(), box,
-        kernels.i32(num_freqs), kernels.i32(mlp.ld), kernels.ptr(out),
+        kernels.ptr(pos_t), kernels.i64(m), kernels.ptr(pack.buffer), box, kernels.i32(num_freqs),
+        kernels.ptr(out),
     )
     return out
 
@@ -223,20 +234,17 @@ def _launch_field(pos_t, dirs_t, emb, bws, bbs, hws, hbs, *, num_freqs, aabb_lo,
     m = pos_t.shape[1]
     kernels.check_tensor(dirs_t, "dirs_t", ndim=2, rows=3, cols=m)
     kernels.check_tensor(emb, "emb", ndim=1)
-    base = kernels.PackedMlp(bws, bbs, device=pos_t.device)
-    head = kernels.PackedMlp(hws, hbs, device=pos_t.device)
-    if base.n[-1] != 16 or head.n[-1] != 3 or head.k_real[0] != 16 + base.n[-1] - 1 + emb.shape[0]:
-        raise ValueError("field kernel takes a 16-wide base output (density + 15 geo) and a "
-                         "3-wide head over [sh16, geo15, emb]")
+    _check_freqs(bws[0], num_freqs)
+    field = kernels.FieldPack(permute_first(bws, num_freqs), bbs, hws, hbs, emb.shape[0],
+                              device=pos_t.device)
     box = kernels.box_consts(aabb_lo, aabb_inv_ext, disable_box, avg_density)
     dens = torch.empty(m, dtype=torch.float32, device=pos_t.device)
     rgb = torch.empty(3, m, dtype=torch.float32, device=pos_t.device)
     kernels.launch(
         "fused_field",
         kernels.ptr(pos_t), kernels.ptr(dirs_t), kernels.ptr(emb), kernels.i32(emb.shape[0]),
-        kernels.i64(m), *base.args(), *head.args(), box, kernels.i32(num_freqs),
-        kernels.i32(max(base.ld, head.ld)), kernels.i32(int(hdr)), kernels.f32(rgb_bias),
-        kernels.ptr(dens), kernels.ptr(rgb),
+        kernels.i64(m), *field.args(), box, kernels.i32(num_freqs), kernels.i32(int(hdr)),
+        kernels.f32(rgb_bias), kernels.ptr(dens), kernels.ptr(rgb),
     )
     return dens, rgb
 
@@ -336,6 +344,60 @@ class _QueryConfig:
         return table[camera_index if camera_index is not None else 0]
 
 
+def check_staged_shapes(p: dict) -> None:
+    """Raise ValueError unless K1 and K2 take the model of named parameters
+    `p`: each proposal MLP fits the wgmma density block
+    (`kernels.check_density_widths`) and the field the wgmma field
+    (`kernels.check_field_widths`)."""
+    for lvl in range(2):
+        kernels.check_density_widths([w.shape for w in _mlp_params(p, f"proposal_{lvl}.mlp")[0]])
+    kernels.check_field_widths([w.shape for w in _mlp_params(p, "field.base_mlp")[0]],
+                               [w.shape for w in _mlp_params(p, "field.head_mlp")[0]])
+
+
+def _staged_query(cfg: _QueryConfig, p: dict, rays, camera_index, field_twin: bool):
+    """The staged query's answer (n, 3). K1 places the samples of both
+    proposal levels; the field stage runs K2, or with `field_twin` its twin
+    `_plain_field`, for a caller that differentiates the answer (a
+    backward reads nothing of K2's output: `_FusedField` recomputes through
+    the twin)."""
+
+    def positions_t(rs):
+        mid = (rs.frustums.starts + rs.frustums.ends) / 2.0  # (N, S)
+        o = rays.origins.T[:, :, None]
+        d = rays.directions.T[:, :, None]
+        return (o + d * mid[None]).reshape(3, -1)
+
+    rs = spaced_sample(rays, cfg.n_prop[0])
+    weights = None
+    for lvl in range(2):
+        if lvl > 0:
+            rs = sample_pdf(rays, rs, weights, cfg.n_prop[lvl])
+        ws, bs = _mlp_params(p, f"proposal_{lvl}.mlp")
+        dens = fused_density(
+            positions_t(rs), ws, bs, _freqs_of(ws[0]),
+            cfg.aabb_lo, cfg.aabb_inv_ext, cfg.dbox, 1.0,
+        ).reshape(rs.frustums.starts.shape)
+        weights = rs.get_weights(dens)
+
+    rs = sample_pdf(rays, rs, weights, cfg.n_nerf)
+    bws, bbs = _mlp_params(p, "field.base_mlp")
+    hws, hbs = _mlp_params(p, "field.head_mlp")
+    emb = cfg.embedding(p, camera_index, rays.origins.device)
+    n, s = rs.frustums.starts.shape
+    dirs_t = rays.directions.T[:, :, None].expand(3, n, s).reshape(3, -1)
+    kw = dict(num_freqs=_freqs_of(bws[0]), aabb_lo=cfg.aabb_lo, aabb_inv_ext=cfg.aabb_inv_ext,
+              disable_box=cfg.dbox, avg_density=1.0, hdr=cfg.hdr, rgb_bias=cfg.rgb_bias)
+    field = _plain_field if field_twin else fused_field
+    dens, rgb_t = field(positions_t(rs), dirs_t, emb, bws, bbs, hws, hbs, **kw)
+    rgb_s = rgb_t.reshape(3, n, s)
+    w = rs.get_weights(dens.reshape(n, s))
+    comp = torch.sum(w[None] * rgb_s, dim=-1)  # (3, N)
+    acc = torch.sum(w, dim=-1)
+    # background_color='last_sample' HDR completion
+    return (comp + rgb_s[..., -1] * (1.0 - acc)[None]).T
+
+
 def make_fused_radiance_query(model, *, disable_box=None, device=None):
     """Build query(params_or_model, rays, camera_index=None) -> rgb (n, 3):
     the kernel equivalent of model(rays, hdr_radiance_only=True,
@@ -343,48 +405,22 @@ def make_fused_radiance_query(model, *, disable_box=None, device=None):
 
     All rays share one camera (`camera_index`, None -> camera 0): the
     emitter query serves one takeover image at a time. `device=None` means
-    CUDA and raises without it."""
+    CUDA and raises without it. MLP widths that K1 or K2 do not take raise
+    ValueError here (`check_staged_shapes`).
+
+    `query.recompute(params, rays, camera_index)` is the same answer with
+    the field stage through its twin, the graph a backward differentiates
+    (the mega query's backward builds it)."""
     cfg = _QueryConfig(model, disable_box, device)
+    check_staged_shapes(named_params(model))
 
     def query(params_or_model, rays, camera_index=None):
-        p = named_params(params_or_model)
+        return _staged_query(cfg, named_params(params_or_model), rays, camera_index, field_twin=False)
 
-        def positions_t(rs):
-            mid = (rs.frustums.starts + rs.frustums.ends) / 2.0  # (N, S)
-            o = rays.origins.T[:, :, None]
-            d = rays.directions.T[:, :, None]
-            return (o + d * mid[None]).reshape(3, -1)
+    def recompute(params_or_model, rays, camera_index=None):
+        return _staged_query(cfg, named_params(params_or_model), rays, camera_index, field_twin=True)
 
-        rs = spaced_sample(rays, cfg.n_prop[0])
-        weights = None
-        for lvl in range(2):
-            if lvl > 0:
-                rs = sample_pdf(rays, rs, weights, cfg.n_prop[lvl])
-            ws, bs = _mlp_params(p, f"proposal_{lvl}.mlp")
-            dens = fused_density(
-                positions_t(rs), ws, bs, _freqs_of(ws[0]),
-                cfg.aabb_lo, cfg.aabb_inv_ext, cfg.dbox, 1.0,
-            ).reshape(rs.frustums.starts.shape)
-            weights = rs.get_weights(dens)
-
-        rs = sample_pdf(rays, rs, weights, cfg.n_nerf)
-        bws, bbs = _mlp_params(p, "field.base_mlp")
-        hws, hbs = _mlp_params(p, "field.head_mlp")
-        emb = cfg.embedding(p, camera_index, rays.origins.device)
-        n, s = rs.frustums.starts.shape
-        dirs_t = rays.directions.T[:, :, None].expand(3, n, s).reshape(3, -1)
-        dens, rgb_t = fused_field(
-            positions_t(rs), dirs_t, emb, bws, bbs, hws, hbs,
-            _freqs_of(bws[0]), cfg.aabb_lo, cfg.aabb_inv_ext, cfg.dbox, 1.0,
-            cfg.hdr, cfg.rgb_bias,
-        )
-        rgb_s = rgb_t.reshape(3, n, s)
-        w = rs.get_weights(dens.reshape(n, s))
-        comp = torch.sum(w[None] * rgb_s, dim=-1)  # (3, N)
-        acc = torch.sum(w, dim=-1)
-        # background_color='last_sample' HDR completion
-        return (comp + rgb_s[..., -1] * (1.0 - acc)[None]).T
-
+    query.recompute = recompute
     return query
 
 
@@ -395,7 +431,13 @@ def pad_rows(x: torch.Tensor, n: int, fill: float) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _fmajor_index(num_freqs: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(fmajor_permutation(num_freqs), device=device)
+
+
 def permute_first(ws, num_freqs):
-    """Permute the first-layer (in, out) rows to the f-major encoding."""
-    perm = torch.as_tensor(fmajor_permutation(num_freqs), device=ws[0].device)
-    return (ws[0][perm],) + tuple(ws[1:])
+    """Permute the first-layer (in, out) rows to the f-major encoding. The
+    index is made once per (F, device): copied from a host list on every
+    call, it would synchronise the stream ahead of each launch."""
+    return (ws[0][_fmajor_index(num_freqs, ws[0].device)],) + tuple(ws[1:])

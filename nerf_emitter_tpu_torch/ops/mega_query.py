@@ -26,8 +26,9 @@ Each kernel has a plain PyTorch twin (`_plain_proposal`,
 `_plain_field_composite`, `_plain_mega_pipeline`, `_plain_proposal`'s
 modes for P2, `_plain_field_mlp`)
 that the wrappers use for CPU tensors only. Gradients of the query
-recompute through the staged query (ops/fused_field.py), whose kernels'
-own backward recomputes through their twins.
+recompute through the staged query (ops/fused_field.py): K1 places the
+samples, whose own backward recomputes through its twin, and the field
+stage runs its twin directly.
 """
 
 from __future__ import annotations
@@ -403,7 +404,10 @@ def launch_field_mlp(pack, xb, sh, emb, depth, out=None):
 
 class _MegaQuery(torch.autograd.Function):
     """Forward through K5 or K3 + K4; backward recomputes through the
-    staged query (the reference's custom_vjp)."""
+    staged query (the reference's custom_vjp), with K1 placing the samples
+    and the field stage through its twin (`run.staged` is the staged
+    query's `recompute`): K2's output would go unread there, as the
+    reference's `jax.vjp` drops the primal."""
 
     @staticmethod
     def forward(ctx, run, origins, directions, nears, fars, *params):
@@ -469,7 +473,9 @@ def make_mega_radiance_query(model, *, disable_box=None, pipelined=None, mxu_chu
     carries the values it was built with as `.pipelined` and `.mxu_chunk`.
     A field whose widths the wgmma field does not take, or sample counts
     whose shared memory does not fit a block, raise ValueError here
-    (`check_query_shapes`). `device=None` means CUDA."""
+    (`check_query_shapes`); so does a proposal MLP that K1, which the
+    backward runs, does not take (the staged query's
+    `check_staged_shapes`). `device=None` means CUDA."""
     pipelined, mxu_chunk = _switches(pipelined, mxu_chunk)
     cfg = _QueryConfig(model, disable_box, device)
     s0, s1 = cfg.n_prop
@@ -508,7 +514,7 @@ def make_mega_radiance_query(model, *, disable_box=None, pipelined=None, mxu_chu
     def query(params_or_model, rays, camera_index=None):
         p = named_params(params_or_model)
         names = [k for k in p if k.startswith(("proposal_0.", "proposal_1.", "field."))]
-        run = _MegaRun(make_forward(camera_index), staged, names, rays, camera_index)
+        run = _MegaRun(make_forward(camera_index), staged.recompute, names, rays, camera_index)
         return _MegaQuery.apply(run, rays.origins, rays.directions, rays.nears, rays.fars,
                                 *[p[k] for k in names])
 
