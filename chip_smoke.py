@@ -40,7 +40,7 @@ NERF_SAMPLES = 48
 RAYS = 1 << 16  # escaped rays per emitter query, a multiple of the 128-ray tile
 CHECK_RAYS = 4096  # rays held against the model forward
 BACKWARD_RAYS = 1 << 14  # rays differentiated (the field twin's saved activations grow with them)
-ODD_RAYS = 1003  # leaves a part-filled group and pass in K4 and K5, and part-filled passes in K1 and K2
+ODD_RAYS = 1003  # leaves a part-filled group in K3, K4 and K5, and part-filled passes in K1 and K2
 
 
 def emit(obj) -> None:
@@ -89,9 +89,8 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
 def ptxas_of(report: str, kernel: str) -> dict:
     """Registers, stack frame and spill bytes that ptxas reported for the
     entry function whose name contains `kernel`, and the count of ptxas's
-    C7519 warnings (a `warpgroup.arrive` it injected) in the source's
-    report (one kernel per source where it is read)."""
-    out, inside = {"c7519": sum("C7519" in ln for ln in report.splitlines())}, False
+    C7519 warnings (a `warpgroup.arrive` it injected) in that function."""
+    out, inside = {"c7519": sum("C7519" in ln and kernel in ln for ln in report.splitlines())}, False
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
             inside = kernel in ln
@@ -239,11 +238,12 @@ def main() -> int:
         del out_k
         torch.cuda.empty_cache()
 
-    def design(source, kernel, occupancy=None, smem_host=None, rows=None):
+    def design(source, kernel, occupancy=None, smem_host=None, rows=None, rays=None):
         """A kernel's ptxas report and, given its launcher's occupancy, its
         launch shape (for K1 and K2, given the rows, their 128-row passes
-        and persistent grid); its shared memory as the launcher sizes it
-        must equal the host's count and fit a block."""
+        and persistent grid; for K3, given the rays, its persistent grid
+        over 8-ray groups); its shared memory as the launcher sizes it must
+        equal the host's count and fit a block."""
         out = dict(ptxas=ptxas_of(info["ptxas"].get(source, ""), kernel))
         if occupancy is not None:
             per_sm, sms, smem = occupancy
@@ -253,6 +253,9 @@ def main() -> int:
             if rows is not None:
                 out |= dict(rows=rows, passes=kernels.row_passes(rows),
                             grid=kernels.persistent_grid(rows, per_sm, sms))
+            if rays is not None:
+                out |= dict(rays=rays, groups=-(-rays // kernels.FIELD_RAYS),
+                            grid=min(-(-rays // kernels.FIELD_RAYS), per_sm * sms))
         return out
 
     def first(t, m=ODD_RAYS):
@@ -324,19 +327,29 @@ def main() -> int:
     )
     del pos2, dirs2
 
-    # K3 on the main path's rays; the f-major first-layer rows the query uses
+    # K3 on the main path's rays, and on the first 1003 of them (a
+    # part-filled last group); the f-major first-layer rows the query uses
     k3 = dict(s0=s0, s1=s1, s2=s2, freqs0=4, freqs1=6, **cfg)
     w0p, w1p = ff.permute_first(ws0, 4), ff.permute_first(ws1, 6)
     props = (w0p, bs0, w1p, bs1)
     k3_flops = 2.0 * n * (s0 * mlp_macs(ws0) + s1 * mlp_macs(ws1))
+
+    def k3_checks(a, b):
+        odd = [first(t) for t in (o_t, d_t, near_t, far_t)]
+        with torch.no_grad():
+            a_odd, b_odd = mq.proposal_bins(*odd, *props, **k3), mq._plain_proposal(*odd, *props, **k3)
+        # spacing bins in [0, 1]: density roundoff moves the CDF by ~1e-4
+        return {"sbins": close(a, b, rtol=0.0, atol=2e-3),
+                f"sbins_{ODD_RAYS}_rays": close(a_odd, b_odd, rtol=0.0, atol=2e-3)}
+
     kernel_phase(
         "proposal", "nerf_emitter_tpu/ops/mega_query.py:711",
         "nerf_emitter_tpu_torch/csrc/proposal.cu",
         lambda: mq.proposal_bins(o_t, d_t, near_t, far_t, *props, **k3),
         lambda: mq._plain_proposal(o_t, d_t, near_t, far_t, *props, **k3),
-        # spacing bins in [0, 1]: density roundoff moves the CDF by ~1e-4
-        lambda a, b: {"sbins": close(a, b, rtol=0.0, atol=2e-3)},
-        k3_flops, n * (8 + s2 + 1) * 4.0, reps=3,
+        k3_checks, k3_flops, n * (8 + s2 + 1) * 4.0, reps=3,
+        design=design("proposal", "proposal_kernelILi0E", kernels.proposal_occupancy(s0, s1, s2),
+                      kernels.proposal_smem_bytes(s0, s1, s2), rays=n),
     )
 
     # K4 on the bins K3 gives these rays
@@ -452,16 +465,14 @@ def main() -> int:
                 "twin_rgb_far1e3_shared_rgb_last":
                     close(a, fg_b + aux_a[1:] * (1.0 - acc_b), rtol=1e-1, atol=1e-3)}
 
-    ld5 = mq.mega_ld(*[kernels.PackedMlp(w, b, device=w[0].device) for w, b in ((w0p, bs0), (w1p, bs1))])
     kernel_phase(
         "mega_pipeline", "nerf_emitter_tpu/ops/mega_query.py:677",
         "nerf_emitter_tpu_torch/csrc/mega_pipeline.cu",
         lambda: mq.mega_pipeline(*rows, emb, *props, *field, **k5),
         lambda: mq._plain_mega_pipeline(*rows, emb, *props, *field, **k5),
         k5_checks, k3_flops + k4_flops, n * (8 + 3) * 4.0, reps=3,
-        design=design("mega_pipeline", "mega_pipeline_kernel",
-                      kernels.mega_pipeline_occupancy(ld5, s0, s1, s2),
-                      kernels.mega_pipeline_smem_bytes(ld5, s0, s1, s2)),
+        design=design("mega_pipeline", "mega_pipeline_kernel", kernels.mega_pipeline_occupancy(s0, s1, s2),
+                      kernels.mega_pipeline_smem_bytes(s0, s1, s2), rays=n),
     )
     del sbins4, k34_4
 

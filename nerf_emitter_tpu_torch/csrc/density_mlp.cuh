@@ -1,9 +1,10 @@
 // The proposal density MLP on Hopper's warpgroup matrix multiply: the
 // f-major encoding (3 + 6F, zero-padded to 64) -> 128 (bf16, ReLU) -> 1 (an
 // f32 reduce), over 64-row tiles, one tile per consumer warpgroup. K1
-// (fused_density.cu) runs it; it is written so that the proposal stages of
-// K3 and K5 can take it over (an Io supplies the rows and takes the
-// densities).
+// (fused_density.cu) runs it on given positions, K3 and P2 (proposal.cu)
+// and K5's proposal stage (mega_pipeline.cu) on the sample midpoints of a
+// ray group (emitter_query.cuh `ProposalIo`): an Io supplies the rows and
+// takes the densities.
 //
 // Arithmetic: that of the TPU kernels (nerf_emitter_tpu/ops/fused_field.py
 // `_mlp_rowsT`) and of the twins: bf16 operands, f32 accumulation, f32 bias,
@@ -16,8 +17,9 @@
 //   wgmma image (kernels.pack_wgmma_layer: W^T, K-major, 128-byte swizzle;
 //   64 x 128 bf16, 16 KB), then the f32 hidden bias, the f32 output weight
 //   and the output bias, packed by the host into one buffer
-//   (kernels.DensityPack) and loaded once per block by one bulk async copy
-//   on an mbarrier.
+//   (kernels.DensityPack) and loaded by one bulk async copy on an mbarrier:
+//   once per block in K1 and K3, once per ray group in K5, whose field
+//   stage takes the pack's room between groups.
 // - Each warpgroup owns a 64 x 64 bf16 slab (8 KB, field_mlp.cuh's swizzled
 //   layout); its 128 threads encode a tile of 64 rows into it, two threads
 //   a row (encode_row's split). The slabs are zeroed once per block, and a
@@ -50,12 +52,13 @@ constexpr int DENSITY_N = 128;                                    // hidden widt
 constexpr int DENSITY_IMAGE = DENSITY_K * DENSITY_N * 2;          // the hidden layer's image
 constexpr int DENSITY_PACK = DENSITY_IMAGE + 8 * DENSITY_N + 16;  // + bias, w_out, b_out (f32)
 constexpr int DENSITY_SLAB = WG_ROWS * DENSITY_K * 2;             // one warpgroup's rows
-// byte offsets from the block's 1024-aligned base: the pack, the two slabs,
-// the rows' keep flags, the mbarrier
-constexpr int DENSITY_SLABS = (DENSITY_PACK + 1023) / 1024 * 1024;
-constexpr int DENSITY_KEEP = DENSITY_SLABS + 2 * DENSITY_SLAB;
+constexpr int DENSITY_PACK_SPAN = (DENSITY_PACK + 1023) / 1024 * 1024;  // a pack's room
+// the work area (1024-aligned): the two slabs, the rows' keep flags, the
+// pack's mbarrier, as byte offsets
+constexpr int DENSITY_KEEP = 2 * DENSITY_SLAB;
 constexpr int DENSITY_BAR = DENSITY_KEEP + PASS_ROWS * 4;
-constexpr int DENSITY_SMEM = 1024 + DENSITY_BAR + 16;  // with the alignment slack
+constexpr int DENSITY_WORK = DENSITY_BAR + 16;
+constexpr int DENSITY_SMEM = 1024 + DENSITY_PACK_SPAN + DENSITY_WORK;  // K1's, with the alignment slack
 
 // D (64 x 128, f32) (+)= A (64 x 16) B (16 x 128); scale_d 0 overwrites D
 __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db, int scale_d) {
@@ -78,18 +81,24 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db, i
         : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// The block's shared memory: the pack (image, bias, w_out, b_out), one
-// slab and 64 keep flags per warpgroup, the pack's mbarrier.
+// The block's shared memory: the pack (image, bias, w_out, b_out) and the
+// work area (one slab and 64 keep flags per warpgroup, the pack's
+// mbarrier). Two packs can share one work area.
 struct DensitySmem {
-    unsigned char* s;  // 1024-aligned
+    unsigned char* pack;  // 1024-aligned
+    unsigned char* work;  // 1024-aligned, DENSITY_WORK bytes
 
-    __device__ const float* bias() const { return reinterpret_cast<const float*>(s + DENSITY_IMAGE); }
+    __device__ const float* bias() const { return reinterpret_cast<const float*>(pack + DENSITY_IMAGE); }
     __device__ const float* w_out() const { return bias() + DENSITY_N; }
     __device__ float b_out() const { return w_out()[DENSITY_N]; }
-    __device__ unsigned char* slab(int wg) const { return s + DENSITY_SLABS + wg * DENSITY_SLAB; }
-    __device__ int* keep(int wg) const { return reinterpret_cast<int*>(s + DENSITY_KEEP) + wg * WG_ROWS; }
-    __device__ uint32_t bar() const { return smem_u32(s + DENSITY_BAR); }
+    __device__ unsigned char* slab(int wg) const { return work + wg * DENSITY_SLAB; }
+    __device__ int* keep(int wg) const { return reinterpret_cast<int*>(work + DENSITY_KEEP) + wg * WG_ROWS; }
+    __device__ uint32_t bar() const { return smem_u32(work + DENSITY_BAR); }
 };
+
+__device__ inline unsigned char* align1024(unsigned char* smem) {
+    return smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+}
 
 // ReLU, then bf16, of (lo, hi), packed; and back to f32
 __device__ __forceinline__ uint32_t relu_bf16x2(float lo, float hi) {
@@ -101,18 +110,29 @@ __device__ __forceinline__ uint32_t relu_bf16x2(float lo, float hi) {
 __device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
-// All threads call it: thread 0 starts the pack's bulk copy (bytes
-// DENSITY_PACK from `pack`, 16-byte aligned), waiting for which is
-// density_tile's (or density_done's); the slabs are zeroed.
-__device__ inline DensitySmem density_start(unsigned char* smem, const unsigned char* pack) {
-    const DensitySmem ds{smem + ((1024 - (smem_u32(smem) & 1023)) & 1023)};
+// All threads call it: the work area's slabs are zeroed (a tile writes only
+// its data columns, so the padding stays zero) and thread 0 initialises the
+// mbarrier. The caller starts the copies and synchronises the block.
+__device__ inline void density_init(const DensitySmem& ds) {
     for (int i = threadIdx.x; i < 2 * DENSITY_SLAB / 16; i += THREADS)
         reinterpret_cast<uint4*>(ds.slab(0))[i] = make_uint4(0, 0, 0, 0);
     if (threadIdx.x == 0) {
         mbar_init(ds.bar(), 1);
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+}
+
+// K1's layout from the block's dynamic shared memory: the pack, then the
+// work area. All threads call it: thread 0 starts the pack's bulk copy
+// (bytes DENSITY_PACK from `pack`, 16-byte aligned), waiting for which is
+// density_tile's (or density_done's).
+__device__ inline DensitySmem density_start(unsigned char* smem, const unsigned char* pack) {
+    unsigned char* base = align1024(smem);
+    const DensitySmem ds{base, base + DENSITY_PACK_SPAN};
+    density_init(ds);
+    if (threadIdx.x == 0) {
         mbar_expect_tx(ds.bar(), DENSITY_PACK);
-        bulk_load(smem_u32(ds.s), pack, DENSITY_PACK, ds.bar());
+        bulk_load(smem_u32(ds.pack), pack, DENSITY_PACK, ds.bar());
     }
     __syncthreads();
     return ds;
@@ -127,8 +147,9 @@ __device__ inline DensitySmem density_start(unsigned char* smem, const unsigned 
 //                                     flag is the row's
 //   density(row, raw, keep)           the raw f32 output of each row (one
 //                                     thread a row)
-// `ready` (per thread, false at first) records that the pack has arrived.
-// All 128 threads of the warpgroup call it.
+// `ready` (per thread, false at first) records that the pack has arrived
+// (phase 0 of its mbarrier); a caller that waits for the pack itself
+// passes true. All 128 threads of the warpgroup call it.
 template <class Io>
 __device__ inline void density_tile(const DensitySmem& ds, const Io& io, int wg, bool& ready) {
     const int tid = threadIdx.x % 128, row = tid % WG_ROWS, half = tid / WG_ROWS;
@@ -159,7 +180,7 @@ __device__ inline void density_tile(const DensitySmem& ds, const Io& io, int wg,
     }
     fence_regs<DENSITY_N / 2>(acc);
     wgmma_fence();
-    const uint32_t a = smem_u32(slab), b = smem_u32(ds.s);
+    const uint32_t a = smem_u32(slab), b = smem_u32(ds.pack);
 #pragma unroll
     for (int s = 0; s < DENSITY_K / 16; ++s) wgmma_n128(acc, sw128_desc(a + s * 32), sw128_desc(b + s * 32), 1);
     wgmma_commit();

@@ -8,7 +8,9 @@
 // level-0 density at the s0 bin midpoints; weights alpha * exp(-exclusive
 // cumsum); deterministic inverse-CDF resample to s1+1 bins (histogram pad
 // 0.01, eps 1e-5, u_i = i (1-eps)/n + 1/(2(n+1))); level-1 density; the same
-// resample to s2+1 bins.
+// resample to s2+1 bins. A group of 8 rays runs its densities on
+// density_mlp.cuh's wgmma block (`ProposalIo` rows) and its per-ray steps
+// one warp a ray.
 //
 // Field and composite (kernel B): spacing bins -> euclidean bins -> s2
 // midpoint positions; base MLP + SH / appearance head; weights; rgb =
@@ -24,16 +26,18 @@
 // and move the ray's CDF by a whole sample's weight.
 #pragma once
 
-#include "field_mlp.cuh"
+#include "density_mlp.cuh"
 
 namespace nek {
 
 enum ProposalMode { kFull = 0, kDensOnly = 1, kResampleOnly = 2 };
 
-// Shared memory of the proposal stage for `rays` rays: the MLP tile buffers
-// and per-ray rows of smax+1 floats.
+constexpr int GROUP_RAYS = FIELD_RAYS;  // rays per proposal group: one warp each
+static_assert(GROUP_RAYS == WARPS, "the per-ray steps run one warp a ray");
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// The proposal state of a group: per-ray rows of smax+1 floats.
 struct ProposalSmem {
-    MlpSmem mlp;
     float* sb_a;   // rays x (smax + 1) spacing bins
     float* sb_b;
     float* eb;     // rays x (smax + 1) euclidean bins of the current level
@@ -43,15 +47,12 @@ struct ProposalSmem {
     float* end;    // first float after the proposal state
 };
 
-inline size_t proposal_smem_bytes(int ld, int out_max, int smax, int rays) {
-    return mlp_smem_bytes(ld, out_max) + sizeof(float) * rays * (4 * (smax + 1) + smax + 8);
+__host__ __device__ inline size_t proposal_state_bytes(int smax, int rays) {
+    return sizeof(float) * rays * (4 * (smax + 1) + smax + 8);
 }
 
-// The MLP tile buffers at `mlp`, the per-ray rows at `state`.
-__device__ inline ProposalSmem carve_proposal(unsigned char* mlp, float* state, int ld, int out_max,
-                                              int smax, int rays) {
+__device__ inline ProposalSmem carve_proposal(float* state, int smax, int rays) {
     ProposalSmem p;
-    p.mlp = carve_mlp_smem(mlp, ld, out_max);
     const int row = smax + 1;
     p.sb_a = state;
     p.sb_b = p.sb_a + rays * row;
@@ -63,76 +64,135 @@ __device__ inline ProposalSmem carve_proposal(unsigned char* mlp, float* state, 
     return p;
 }
 
-// The per-ray rows right after the MLP tile buffers.
-__device__ inline ProposalSmem carve_proposal(unsigned char* smem, int ld, int out_max, int smax,
-                                              int rays) {
-    return carve_proposal(smem, carve_mlp_smem(smem, ld, out_max).scratch + WARPS * 256, ld, out_max,
-                          smax, rays);
+// The proposal stage's density block: one pack per level (the level's
+// proposal MLP, 1024-aligned, DENSITY_PACK_SPAN apart) sharing one work
+// area, whose mbarrier both packs' copies complete on.
+struct ProposalDensity {
+    DensitySmem level[2];
+
+    __device__ uint32_t bar() const { return level[0].bar(); }
+};
+
+__device__ inline ProposalDensity proposal_density(unsigned char* packs, unsigned char* work) {
+    return ProposalDensity{{DensitySmem{packs, work}, DensitySmem{packs + DENSITY_PACK_SPAN, work}}};
 }
 
-// n+1 spacing bins sb (element stride `stride`) -> euclidean bins eb
-__device__ inline void euclid_bins(float* eb, const float* sb, long long stride, int n, float sn,
-                                   float sf) {
-    for (int i = 0; i <= n; ++i)
-        eb[i] = spacing_pw_inv(__fadd_rn(__fmul_rn(sb[i * stride], sf - sn), sn));
+// Thread 0: the bulk copies of both levels' packs (kernels.DensityPack
+// buffers, 16-byte aligned), one phase of the mbarrier.
+__device__ inline void load_proposal_packs(const ProposalDensity& pd, const unsigned char* pack0,
+                                           const unsigned char* pack1) {
+    mbar_expect_tx(pd.bar(), 2 * DENSITY_PACK);
+    bulk_load(smem_u32(pd.level[0].pack), pack0, DENSITY_PACK, pd.bar());
+    bulk_load(smem_u32(pd.level[1].pack), pack1, DENSITY_PACK, pd.bar());
 }
 
-// densities of the n_rays x S samples at the midpoints of p.eb (row stride
-// smax+1) into p.dens (row stride smax). All threads call it.
-__device__ inline void density_pass(const ProposalSmem& p, const Mlp& mlp, const Box& bx, int F,
-                                    int S, int n_rays, int smax, int ld) {
-    const int total = n_rays * S;
-    for (int c0 = 0; c0 < total; c0 += TILE) {
-        const int t = threadIdx.x;
-        bool keep = false;
-        if (t < TILE) {
-            const int j = c0 + t;
-            float pt[3] = {0.0f, 0.0f, 0.0f}, x2[3];
-            if (j < total) {
-                const int r = j / S, sidx = j % S;
-                const float* eb = p.eb + r * (smax + 1);
-                const float mid = (eb[sidx] + eb[sidx + 1]) / 2.0f;
-                const float* ray = p.ray + r * 8;
-                for (int k = 0; k < 3; ++k) pt[k] = __fadd_rn(ray[k], __fmul_rn(ray[3 + k], mid));
-            }
-            keep = contract_and_select(bx, pt, x2) && j < total;
-            freq_encode(p.mlp.a + (size_t)t * ld, x2, F, mlp.k[0]);
+// The rows of one proposal density tile: row j of a level is ray j / S,
+// bin j % S, at the midpoint of the ray's euclidean bins (row stride
+// smax+1); rows past the group's n_rays x S encode zeros and write nothing.
+struct ProposalIo {
+    const Box& bx;
+    const float* eb;
+    const float* ray;  // the group's rays, 8 floats each
+    float* dens;       // rays x smax
+    int c0, total, S, smax, F;  // first row of the tile; rows of the level
+
+    __device__ bool encode(unsigned char* slab, int row, int half) const {
+        const int j = c0 + row;
+        if (j >= total) {
+            for (int c = half; c < 3 + 6 * F; c += 2) st_bf16(slab, row, c, 0.0f);
+            return false;
         }
-        run_mlp(mlp, p.mlp, ld);
-        if (t < TILE && c0 + t < total)
-            p.dens[((c0 + t) / S) * smax + (c0 + t) % S] =
-                density_of(p.mlp.out[t], keep, bx.avg_density);
-        __syncthreads();
+        const int r = j / S, s = j % S;
+        const float* e = eb + r * (smax + 1);
+        const float mid = (e[s] + e[s + 1]) / 2.0f;
+        float p[3], x2[3];
+        for (int k = 0; k < 3; ++k) p[k] = __fadd_rn(ray[r * 8 + k], __fmul_rn(ray[r * 8 + 3 + k], mid));
+        const bool keep = contract_and_select(bx, p, x2);
+        encode_row(slab, row, half, x2, F, 3 + 6 * F);  // no padding: it stays zero
+        return keep;
+    }
+
+    __device__ void density(int row, float raw, bool keep) const {
+        const int j = c0 + row;
+        if (j < total) dens[(j / S) * smax + j % S] = density_of(raw, keep, bx.avg_density);
+    }
+};
+
+// ---------------------------------------------------------------------------
+// the per-ray steps, one warp a ray: lane l takes elements l, l + 32, ...
+// ---------------------------------------------------------------------------
+
+// Inclusive sum over the warp's lanes: Hillis-Steele, five shifted adds
+// (the TPU kernel's own scan, nerf_emitter_tpu/ops/mega_query.py
+// `_cumsum_rows`, over 32 lanes)
+__device__ __forceinline__ float warp_incl_sum(float x, int lane) {
+#pragma unroll
+    for (int off = 1; off < 32; off *= 2) {
+        const float y = __shfl_up_sync(FULL_MASK, x, off);
+        if (lane >= off) x = __fadd_rn(x, y);
+    }
+    return x;
+}
+
+// Sum over the warp's lanes by butterfly; every lane gets the same bits
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+    for (int m = 16; m > 0; m /= 2) x = __fadd_rn(x, __shfl_xor_sync(FULL_MASK, x, m));
+    return x;
+}
+
+__device__ __forceinline__ float euclid_bin(float sb, float sn, float sf) {
+    return spacing_pw_inv(__fadd_rn(__fmul_rn(sb, sf - sn), sn));
+}
+
+// n+1 spacing bins sb (element stride `stride`) -> euclidean bins eb, the
+// elements first, first + step, ... (a warp passes its lane and 32)
+__device__ inline void euclid_bins(float* eb, const float* sb, long long stride, int n, float sn,
+                                   float sf, int first = 0, int step = 1) {
+    for (int i = first; i <= n; i += step) eb[i] = euclid_bin(sb[i * stride], sn, sf);
+}
+
+// One ray's weights from its densities, by its warp: w (S, in place over
+// the densities) = alpha * exp(-exclusive cumsum) with the deltas of the
+// S+1 euclidean bins. The cumsum runs over 32-sample strips: a warp scan
+// of the strip, plus the sum of the strips before it.
+__device__ inline void ray_weights(float* w, const float* eb, int S, int lane) {
+    float carry = 0.0f;
+    for (int base = 0; base < S; base += 32) {
+        const int s = base + lane;
+        const float dd = s < S ? __fmul_rn(w[s], eb[s + 1] - eb[s]) : 0.0f;
+        const float incl = warp_incl_sum(dd, lane);
+        const float before = __shfl_up_sync(FULL_MASK, incl, 1);
+        const float excl = __fadd_rn(carry, lane == 0 ? 0.0f : before);
+        if (s < S) w[s] = (1.0f - expf(-dd)) * expf(-excl);
+        carry = __fadd_rn(carry, __shfl_sync(FULL_MASK, incl, 31));
     }
 }
 
-// weights from densities: w (S, in place over the densities) =
-// alpha * exp(-exclusive cumsum) with the deltas of the S+1 euclidean bins
-__device__ inline void ray_weights(float* w, const float* eb, int S) {
-    float excl = 0.0f;
-    for (int s = 0; s < S; ++s) {
-        const float dd = __fmul_rn(w[s], eb[s + 1] - eb[s]);
-        w[s] = (1.0f - expf(-dd)) * expf(-excl);
-        excl = __fadd_rn(excl, dd);
-    }
-}
-
-// CDF (S+1) of S given weights (padded in place by the histogram pad)
-__device__ inline void build_cdf(float* w, float* cdf, int S) {
-    float w_sum = 0.0f;
-    for (int s = 0; s < S; ++s) {
+// One ray's CDF (S+1) of S given weights (padded in place by the histogram
+// pad), by its warp: the weights' sum by lane partials and a butterfly,
+// the pdf's running sum by strips as in ray_weights.
+__device__ inline void build_cdf(float* w, float* cdf, int S, int lane) {
+    float part = 0.0f;
+    for (int s = lane; s < S; s += 32) {
         w[s] += HIST_PAD;
-        w_sum += w[s];
+        part += w[s];
     }
+    float w_sum = warp_sum(part);
     const float padding = fmaxf(PDF_EPS - w_sum, 0.0f);
     w_sum += padding;
-    float run = 0.0f;
-    cdf[0] = 0.0f;
-    for (int s = 0; s < S - 1; ++s) {
-        run += (w[s] + padding / S) / w_sum;
-        cdf[s + 1] = fminf(1.0f, run);
+    float carry = 0.0f;
+    for (int base = 0; base < S - 1; base += 32) {
+        const int s = base + lane;
+        const float pdf = s < S - 1 ? (w[s] + padding / S) / w_sum : 0.0f;
+        const float incl = __fadd_rn(carry, warp_incl_sum(pdf, lane));
+        if (s < S - 1) cdf[s + 1] = fminf(1.0f, incl);
+        carry = __shfl_sync(FULL_MASK, incl, 31);
     }
-    cdf[S] = 1.0f;
+    if (lane == 0) {
+        cdf[0] = 0.0f;
+        cdf[S] = 1.0f;
+    }
 }
 
 // u_i of the deterministic resample to n_out bins
@@ -141,74 +201,102 @@ __device__ inline float resample_u(int i, int n_out) {
     return (float)(i * step + u0);
 }
 
-// Inverse CDF of S given weights w (clobbered) over spacing bins sb_in (S+1)
-// -> sb_out (n_out+1); cdf is S+1 scratch. The TPU kernel's telescoped ramp
-// sum is replaced by a merge walk of the monotone u grid against the CDF
-// and an exact per-segment interpolation: the same function without the
-// ramp form's cancellation.
+// One ray's inverse CDF, by its warp: S given weights w (clobbered) over
+// spacing bins sb_in (S+1) -> sb_out (n_out+1); cdf is S+1 scratch. The
+// TPU kernel's telescoped ramp sum is replaced by an exact per-segment
+// interpolation: the same function without the ramp form's cancellation.
+// Each u_i finds its segment b by binary search, the count of cdf[1..S-1]
+// at or below it (torch.searchsorted(right=True), as the twin).
 __device__ inline void inverse_cdf(float* w, float* cdf, int S, const float* sb_in, int n_out,
-                                   float* sb_out) {
-    build_cdf(w, cdf, S);
-    int b = 0;
-    for (int i = 0; i <= n_out; ++i) {
+                                   float* sb_out, int lane) {
+    build_cdf(w, cdf, S, lane);
+    __syncwarp();
+    for (int i = lane; i <= n_out; i += 32) {
         const float u = resample_u(i, n_out);
-        while (b < S - 1 && cdf[b + 1] <= u) ++b;
+        int lo = 1, hi = S;  // the first k in [1, S) with cdf[k] > u, else S
+        while (lo < hi) {
+            const int mid = (lo + hi) / 2;
+            if (cdf[mid] <= u)
+                lo = mid + 1;
+            else
+                hi = mid;
+        }
+        const int b = lo - 1;
         const float frac = fminf(fmaxf((u - cdf[b]) / fmaxf(cdf[b + 1] - cdf[b], PDF_EPS), 0.0f), 1.0f);
         sb_out[i] = __fadd_rn(sb_in[b], __fmul_rn(sb_in[b + 1] - sb_in[b], frac));
     }
 }
 
-// One proposal level of the group: densities at p.eb (or, in
-// kResampleOnly, 0.3 x the far bin edge), weights, then the resample of
-// sb_in (S+1) to sb_out (n_out+1) (or, in kDensOnly, uniform bins i/n_out),
-// and with next_eb the euclidean bins of sb_out in p.eb.
+// One proposal level of the group: densities at p.eb on the density block
+// `ds` (or, in kResampleOnly, 0.3 x the far bin edge), then per ray, by its
+// warp, the weights and the resample of sb_in (S+1) to sb_out (n_out+1)
+// (or, in kDensOnly, uniform bins i/n_out), and with next_eb the euclidean
+// bins of sb_out in p.eb. The pack must have arrived. All threads call it;
+// it ends with a barrier.
 template <int MODE>
-__device__ inline void proposal_level(const ProposalSmem& p, const Mlp& mlp, const Box& bx, int F,
-                                      int S, int n_out, int n_rays, int smax, int ld,
-                                      float* sb_in, float* sb_out, bool next_eb) {
-    const int t = threadIdx.x, row = smax + 1;
-    if (MODE != kResampleOnly) density_pass(p, mlp, bx, F, S, n_rays, smax, ld);
-    if (t < n_rays) {
-        float* w = p.dens + t * smax;
-        const float* eb = p.eb + t * row;
-        float* out = sb_out + t * row;
+__device__ inline void proposal_level(const ProposalSmem& p, const DensitySmem& ds, const Box& bx,
+                                      int F, int S, int n_out, int n_rays, int smax, float* sb_in,
+                                      float* sb_out, bool next_eb) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, row = smax + 1;
+    if (MODE != kResampleOnly) {
+        const int wg = threadIdx.x / 128, total = n_rays * S;
+        bool ready = true;
+        for (int c0 = 0; c0 < total; c0 += PASS_ROWS)
+            density_tile(ds, ProposalIo{bx, p.eb, p.ray, p.dens, c0 + wg * WG_ROWS, total, S, smax, F}, wg,
+                         ready);
+        __syncthreads();  // every density is in
+    }
+    if (warp < n_rays) {
+        float* w = p.dens + warp * smax;
+        float* eb = p.eb + warp * row;
+        float* out = sb_out + warp * row;
         if (MODE == kResampleOnly)
-            for (int s = 0; s < S; ++s) w[s] = eb[s + 1] * 0.3f;
-        ray_weights(w, eb, S);
+            for (int s = lane; s < S; s += 32) w[s] = eb[s + 1] * 0.3f;
+        ray_weights(w, eb, S, lane);
+        __syncwarp();  // the lanes' reads of eb are done
         if (MODE == kDensOnly)
-            for (int i = 0; i <= n_out; ++i) out[i] = (float)i / (float)n_out;
+            for (int i = lane; i <= n_out; i += 32) out[i] = (float)i / (float)n_out;
         else
-            inverse_cdf(w, p.cdf + t * row, S, sb_in + t * row, n_out, out);
-        if (next_eb) euclid_bins(p.eb + t * row, out, 1, n_out, p.ray[t * 8 + 6], p.ray[t * 8 + 7]);
+            inverse_cdf(w, p.cdf + warp * row, S, sb_in + warp * row, n_out, out, lane);
+        // each lane reads the bins it wrote
+        if (next_eb) euclid_bins(eb, out, 1, n_out, p.ray[warp * 8 + 6], p.ray[warp * 8 + 7], lane, 32);
     }
     __syncthreads();
 }
 
 // Kernel A for the n_rays rays from r0 of (3, n) / (1, n) ray arrays: the
-// final s2+1 spacing bins land in p.sb_a (row stride smax+1). All threads
-// call it.
+// final s2+1 spacing bins land in p.sb_a (row stride smax+1). The packs of
+// `pd` arrive on the phase of its mbarrier with parity `parity`. All
+// threads call it; it ends with a barrier.
 template <int MODE>
-__device__ inline void proposal_group(const ProposalSmem& p, const float* __restrict__ o,
-                                      const float* __restrict__ d, const float* __restrict__ near,
-                                      const float* __restrict__ far, long long n, long long r0,
-                                      int n_rays, const Mlp& mlp0, const Mlp& mlp1, const Box& bx,
-                                      int F0, int F1, int s0, int s1, int s2, int smax, int ld) {
-    const int t = threadIdx.x, row = smax + 1;
-    if (t < n_rays) {
-        float* ray = p.ray + t * 8;
-        for (int k = 0; k < 3; ++k) {
-            ray[k] = o[k * n + r0 + t];
-            ray[3 + k] = d[k * n + r0 + t];
+__device__ inline void proposal_group(const ProposalSmem& p, const ProposalDensity& pd, int parity,
+                                      const float* __restrict__ o, const float* __restrict__ d,
+                                      const float* __restrict__ near, const float* __restrict__ far,
+                                      long long n, long long r0, int n_rays, const Box& bx, int F0,
+                                      int F1, int s0, int s1, int s2, int smax) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, row = smax + 1;
+    if (warp < n_rays) {
+        const long long g = r0 + warp;
+        float* ray = p.ray + warp * 8;
+        if (lane < 3)
+            ray[lane] = o[lane * n + g];
+        else if (lane < 6)
+            ray[lane] = d[(lane - 3) * n + g];
+        else if (lane < 8)
+            ray[lane] = spacing_pw(lane == 6 ? near[g] : far[g]);
+        __syncwarp();
+        float* sb = p.sb_a + warp * row;
+        float* eb = p.eb + warp * row;
+        for (int i = lane; i <= s0; i += 32) {
+            const float v = (float)i / (float)s0;
+            sb[i] = v;
+            eb[i] = euclid_bin(v, ray[6], ray[7]);
         }
-        ray[6] = spacing_pw(near[r0 + t]);
-        ray[7] = spacing_pw(far[r0 + t]);
-        float* sb = p.sb_a + t * row;
-        for (int i = 0; i <= s0; ++i) sb[i] = (float)i / (float)s0;
-        euclid_bins(p.eb + t * row, sb, 1, s0, ray[6], ray[7]);
     }
+    mbar_wait(pd.bar(), parity);
     __syncthreads();
-    proposal_level<MODE>(p, mlp0, bx, F0, s0, s1, n_rays, smax, ld, p.sb_a, p.sb_b, true);
-    proposal_level<MODE>(p, mlp1, bx, F1, s1, s2, n_rays, smax, ld, p.sb_b, p.sb_a, false);
+    proposal_level<MODE>(p, pd.level[0], bx, F0, s0, s1, n_rays, smax, p.sb_a, p.sb_b, true);
+    proposal_level<MODE>(p, pd.level[1], bx, F1, s1, s2, n_rays, smax, p.sb_b, p.sb_a, false);
 }
 
 // Kernel B's field, one pass of 128 samples of a ray group: the rows of

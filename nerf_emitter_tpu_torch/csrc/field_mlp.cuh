@@ -5,9 +5,9 @@
 // over passes of 128 sample rows.
 //
 // Arithmetic: that of the TPU kernels (nerf_emitter_tpu/ops/fused_field.py
-// `_mlp_rowsT`) and of common.cuh's wmma MLP: bf16 operands, f32
-// accumulation, f32 bias, ReLU, re-cast to bf16; the head's output layer
-// (at most 4 wide) is an f32 reduce with the f32 weight.
+// `_mlp_rowsT`): bf16 operands, f32 accumulation, f32 bias, ReLU, re-cast
+// to bf16; the head's output layer (at most 4 wide) is an f32 reduce with
+// the f32 weight.
 //
 // Design.
 // - Two consumer warpgroups per block (the block's 256 threads), each
@@ -29,9 +29,9 @@
 //   cp.async.bulk, per chunk, completing on an mbarrier); both warpgroups
 //   read each stage, then each warp arrives on the stage's "empty"
 //   mbarrier. Thread 0 refills a stage once all 8 warps have released it.
-//   There is no producer warp: the block's 256 threads all compute, and the
-//   wmma code that K5's proposal stage shares with K3 keeps its 256
-//   threads and its __syncthreads.
+//   There is no producer warp: the block's 256 threads all compute, and
+//   K5's proposal stage (density_mlp.cuh's block and a warp per ray) uses
+//   all of them.
 // - The chunk sequence of a pass is the same for every pass, so the ring
 //   runs ahead across passes and ray groups: in K5 the first chunks of a
 //   group's field stage arrive while its proposal stage runs.
@@ -320,10 +320,12 @@ __device__ __forceinline__ float ld_bf16(const unsigned char* slab, int row, int
     return __bfloat162float(*reinterpret_cast<const bf16*>(slab + swz(row, col)));
 }
 
-// The 3 + 6F f-major encoding of x2 (common.cuh `freq_encode`, same
-// arithmetic) into a slab row, zero-filled to kpad: the row's two threads
-// each run the octave recurrence; half 0 writes x2 and the sines, half 1
-// the cosines and the padding.
+// The 3 + 6F f-major encoding of x2 into a slab row, zero-filled to kpad:
+// [x, sin(dim k, octave i) at 3 + 3 i + k, cos at 3 + 3F + 3 i + k] (the
+// first layer's rows are permuted on the host to match), the octaves by
+// the double-angle recurrence with the twins' unfused 1 - 2 s^2. The row's
+// two threads each run the recurrence; half 0 writes x2 and the sines,
+// half 1 the cosines and the padding.
 __device__ inline void encode_row(unsigned char* slab, int row, int half, const float x2[3], int F,
                                   int kpad) {
     for (int k = 0; k < 3; ++k) {

@@ -13,19 +13,21 @@
 //   row is sb[0] + sum_s coef[s] relu(u_i - cdf[s]), in f32. The script's
 //   `scalar-u-mxu` variant computes the same sum with its row reduce moved
 //   onto the TPU's matrix unit, so this form is the counterpart of both.
-// - kWalk: K3's CDF walk (emitter_query.cuh `inverse_cdf`).
+// - kWalk: K3's resample (emitter_query.cuh `inverse_cdf`: the CDF by
+//   warp scans, each u's segment by binary search, the exact per-segment
+//   interpolation).
 //
 // Bound on an H100, both forms: the function's bytes (w0, sb0 and w1 read
 // once, the output written once: 658 floats, 2.6 KB a ray). The walk's
-// work is O(S) a ray. The ramp's (S1+1)(S0+1) + (S2+1)(S1+1) cells of 4 f32
+// work is O(S + n_out log S) a ray. The ramp's (S1+1)(S0+1) + (S2+1)(S1+1) cells of 4 f32
 // operations each (116 kFLOP a ray at (256, 96, 48)) are the cost of the
 // ramp algorithm, not of the function, and do not set its bound.
 //
 // Design: one block of 8 warps per 16 rays. The block loads its rays'
-// columns into per-ray shared-memory rows (odd row stride, so the lanes of
-// a warp walking 16 rays hit 16 banks); one thread per ray builds the CDF
-// (and the ramp's coefficients, over the weights); the ramp's output rows
-// are spread over all threads, one (row, ray) each.
+// columns into per-ray shared-memory rows; one warp per ray builds the CDF
+// as K3 does (and the ramp's coefficients, over the weights, a lane per
+// segment), each warp taking two rays; the ramp's output rows are spread
+// over all threads, one (row, ray) each.
 #include "emitter_query.cuh"
 
 using namespace nek;
@@ -34,34 +36,36 @@ constexpr int RAYS = 16;
 
 enum ResampleForm { kRamp = 0, kWalk = 1 };
 
-// the telescoped ramp coefficients (S+1) of the segments' slopes, over w
-__device__ inline void ramp_coef(float* coef, const float* cdf, int S, const float* sb) {
-    float g_prev = 0.0f;
-    for (int s = 0; s < S; ++s) {
-        const float g = (sb[s + 1] - sb[s]) / fmaxf(cdf[s + 1] - cdf[s], PDF_EPS);
-        coef[s] = g - g_prev;
-        g_prev = g;
-    }
-    coef[S] = -g_prev;
+// the slope of segment s of the piecewise-linear inverse CDF
+__device__ inline float ramp_slope(const float* cdf, const float* sb, int s) {
+    return (sb[s + 1] - sb[s]) / fmaxf(cdf[s + 1] - cdf[s], PDF_EPS);
 }
 
-// R(w, sb_in, n_out) for the block's n_rays rays (row stride `row`): w is
-// clobbered, cdf is scratch. All threads call it.
+// the telescoped ramp coefficients (S+1) of the segments' slopes, over w:
+// coef[s] = g[s] - g[s-1] (g[-1] = g[S] = 0), a lane per coefficient
+__device__ inline void ramp_coef(float* coef, const float* cdf, int S, const float* sb, int lane) {
+    for (int s = lane; s <= S; s += 32)
+        coef[s] = (s < S ? ramp_slope(cdf, sb, s) : 0.0f) - (s > 0 ? ramp_slope(cdf, sb, s - 1) : 0.0f);
+}
+
+// R(w, sb_in, n_out) for the block's n_rays rays (row stride `row`), a
+// warp per ray: w is clobbered, cdf is scratch. All threads call it.
 template <int FORM>
 __device__ inline void resample_stage(float* w, float* cdf, const float* sb_in, float* sb_out,
                                       int S, int n_out, int n_rays, int row) {
-    const int t = threadIdx.x;
-    if (FORM == kWalk) {
-        if (t < n_rays)
-            inverse_cdf(w + t * row, cdf + t * row, S, sb_in + t * row, n_out, sb_out + t * row);
-        __syncthreads();
-        return;
-    }
-    if (t < n_rays) {
-        build_cdf(w + t * row, cdf + t * row, S);
-        ramp_coef(w + t * row, cdf + t * row, S, sb_in + t * row);
+    const int t = threadIdx.x, lane = t % 32;
+    for (int r = t / 32; r < n_rays; r += WARPS) {
+        if (FORM == kWalk) {
+            inverse_cdf(w + r * row, cdf + r * row, S, sb_in + r * row, n_out, sb_out + r * row, lane);
+        } else {
+            build_cdf(w + r * row, cdf + r * row, S, lane);
+            __syncwarp();  // every lane's cdf is in; the weights are read
+            ramp_coef(w + r * row, cdf + r * row, S, sb_in + r * row, lane);
+        }
+        __syncwarp();
     }
     __syncthreads();
+    if (FORM == kWalk) return;
     for (int k = t; k < (n_out + 1) * n_rays; k += blockDim.x) {
         const int r = k % n_rays, i = k / n_rays;
         const float u = resample_u(i, n_out);

@@ -24,7 +24,6 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Sequence
 
 import torch
 
@@ -48,16 +47,16 @@ NVCC_FLAGS = [
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _PI, _PLL, _PF = ctypes.POINTER(_I), ctypes.POINTER(_LL), ctypes.POINTER(_F)
-_MLP = [_PI, _PLL]  # dims, pointers (PackedMlp.args, FieldPack.args)
+_MLP = [_PI, _PLL]  # dims, pointers (FieldPack.args)
 # C launcher `nek_<kernel>` of each kernel -> argument types; every launcher
 # ends with the stream and returns cudaGetLastError()
 SIGNATURES = {
     "fused_density": [_P, _LL, _P, _PF, _I, _P, _P],
     "fused_field": [_P, _P, _P, _I, _LL, *_MLP, _PF, _I, _I, _F, _P, _P, _P],
-    "proposal": [_P, _P, _P, _P, _LL, *_MLP, *_MLP, _PF, _I, _I, _I, _I, _I, _I, _P, _P],
+    "proposal": [_P, _P, _P, _P, _LL, _P, _P, _PF, _I, _I, _I, _I, _I, _P, _P],
     "field_composite": [_P, _P, _P, _P, _P, _P, _I, _LL, *_MLP, _PF, _I, _I, _I, _F, _P, _P, _P],
-    "mega_pipeline": [_P, _P, _P, _P, _P, _I, _LL, *_MLP, *_MLP, *_MLP, _PF, _I, _I, _I, _I, _I,
-                      _I, _I, _I, _F, _P, _P, _P],
+    "mega_pipeline": [_P, _P, _P, _P, _P, _I, _LL, _P, _P, *_MLP, _PF, _I, _I, _I, _I, _I, _I, _I, _F,
+                      _P, _P, _P],
     "field_mlp": [_P, _I, _P, _P, _I, _LL, *_MLP, _I, _P, _P],
     "resample": [_I, _P, _P, _P, _LL, _I, _I, _I, _P, _P],
 }
@@ -152,11 +151,15 @@ def _occupancy(name: str, *args) -> tuple[int, int, int]:
     return per_sm.value, sms.value, smem.value
 
 
-def mega_pipeline_occupancy(ld: int, s0: int, s1: int, s2: int) -> tuple[int, int, int]:
+def mega_pipeline_occupancy(s0: int, s1: int, s2: int) -> tuple[int, int, int]:
     """(blocks of K5 resident per SM, SM count, dynamic shared memory bytes)
-    at the proposal MLPs' row stride `ld` and these sample counts, as its
-    launcher sizes its persistent grid."""
-    return _occupancy("mega_pipeline", ld, s0, s1, s2)
+    at these sample counts, as its launcher sizes its persistent grid."""
+    return _occupancy("mega_pipeline", s0, s1, s2)
+
+
+def proposal_occupancy(s0: int, s1: int, s2: int) -> tuple[int, int, int]:
+    """The same for K3."""
+    return _occupancy("proposal", s0, s1, s2)
 
 
 def field_composite_occupancy(s2: int) -> tuple[int, int, int]:
@@ -218,66 +221,11 @@ def box_consts(aabb_lo, aabb_inv_ext, disable_box, avg_density):
     return (ctypes.c_float * 14)(*[float(v) for v in vals])
 
 
-class PackedMlp:
-    """An MLP's (in, out) float32 weights laid out for csrc/common.cuh `Mlp`:
-    per layer a bf16 (k, n) row-major copy with k padded to a multiple of 16
-    (zero rows), the f32 bias, and for an output layer at most 4 wide the
-    f32 (k, n) weight its reduce uses. Hidden widths must be multiples of
-    16 (they are wmma tile widths)."""
-
-    def __init__(self, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], *, device):
-        n_layers = len(ws)
-        if not 1 <= n_layers <= 8:
-            raise ValueError(f"kernel MLPs have 1..8 layers, got {n_layers}")
-        self.k_real = [w.shape[0] for w in ws]
-        self.k = [-(-k // 16) * 16 for k in self.k_real]
-        self.n = [w.shape[1] for w in ws]
-        self._keep = []
-        ptrs = []
-        for i, (w, b) in enumerate(zip(ws, bs)):
-            last = i == n_layers - 1
-            if w.device != device or b.device != device:
-                raise ValueError("MLP weights must be on the kernel's device")
-            if (not last or self.n[i] > 4) and self.n[i] % 16:
-                raise ValueError(f"layer {i}: width {self.n[i]} is not a multiple of 16")
-            if i and self.k[i] != self.k_real[i]:
-                raise ValueError(f"layer {i}: input width {self.k_real[i]} is not a multiple of 16")
-            wb = torch.zeros(self.k[i], self.n[i], dtype=torch.bfloat16, device=device)
-            wb[: self.k_real[i]] = w.detach()
-            bias = b.detach().float().contiguous()
-            self._keep += [wb, bias]
-            ptrs += [wb.data_ptr(), bias.data_ptr()]
-        wl = torch.zeros(self.k[-1], self.n[-1], dtype=torch.float32, device=device)
-        wl[: self.k_real[-1]] = ws[-1].detach()
-        self._keep.append(wl)
-        ptrs.append(wl.data_ptr())
-        self.ld = mlp_ld([w.shape for w in ws])
-        self._dims = (ctypes.c_int * (1 + 2 * n_layers))(n_layers, *self.k, *self.n)
-        self._ptrs = (ctypes.c_longlong * len(ptrs))(*ptrs)
-
-    def args(self):
-        return self._dims, self._ptrs
-
-
-def mlp_ld(shapes) -> int:
-    """The activation row stride of common.cuh's wmma MLP for layers of
-    these (in, out) shapes: the widest padded input or hidden width, plus 8."""
-    k0 = -(-shapes[0][0] // 16) * 16
-    return max([k0] + [s[1] for s in shapes[:-1]]) + 8
-
-
-def mlp_smem_bytes(ld: int, out_max: int) -> int:
-    """common.cuh `mlp_smem_bytes`: two bf16 TILE x ld buffers, the f32
-    output, one 16x16 f32 scratch per warp."""
-    return 2 * MLP_TILE * ld * 2 + MLP_TILE * out_max * 4 + MLP_WARPS * 256 * 4
-
-
 # ---------------------------------------------------------------------------
 # the wgmma field of K2, K4 and K5 (csrc/field_mlp.cuh)
 # ---------------------------------------------------------------------------
 
-# constants of csrc/common.cuh and csrc/field_mlp.cuh
-MLP_TILE, MLP_WARPS = 64, 8
+# constants of csrc/field_mlp.cuh
 WG_ROWS = 64  # rows per consumer warpgroup
 PASS_ROWS = 2 * WG_ROWS  # rows per pass
 RING = 3  # weight stages
@@ -419,6 +367,9 @@ def persistent_grid(m: int, blocks_per_sm: int, sms: int) -> int:
 
 DENSITY_K, DENSITY_N = 64, 128  # padded input width, hidden width
 DENSITY_PACK_BYTES = DENSITY_K * DENSITY_N * 2 + 8 * DENSITY_N + 16  # image, bias, w_out, b_out
+DENSITY_PACK_SPAN = -(-DENSITY_PACK_BYTES // 1024) * 1024  # a pack's room in shared memory
+# the density block's work area: two 8 KB slabs, 128 keep flags, the mbarrier
+DENSITY_WORK = 2 * WG_ROWS * DENSITY_K * 2 + PASS_ROWS * 4 + 16
 
 
 def check_density_widths(shapes) -> None:
@@ -460,10 +411,28 @@ class DensityPack:
 
 def density_smem_bytes() -> int:
     """K1's dynamic shared memory (density_mlp.cuh `DENSITY_SMEM`):
-    alignment slack, the pack padded to 1 KB, two 8 KB slabs, 128 keep
-    flags, the mbarrier."""
-    slabs = -(-DENSITY_PACK_BYTES // 1024) * 1024
-    return 1024 + slabs + 2 * WG_ROWS * DENSITY_K * 2 + PASS_ROWS * 4 + 16
+    alignment slack, the pack padded to 1 KB, the work area (two 8 KB
+    slabs, 128 keep flags, the mbarrier)."""
+    return 1024 + DENSITY_PACK_SPAN + DENSITY_WORK
+
+
+# ---------------------------------------------------------------------------
+# the proposal stage of K3 and K5 (csrc/emitter_query.cuh)
+# ---------------------------------------------------------------------------
+
+
+def proposal_state_bytes(s0: int, s1: int, s2: int) -> int:
+    """emitter_query.cuh `proposal_state_bytes`: per ray of a group its two
+    spacing-bin rows, euclidean bins and CDF (smax+1 each), densities (smax)
+    and o, d, s_near, s_far."""
+    smax = max(s0, s1, s2)
+    return 4 * FIELD_RAYS * (4 * (smax + 1) + smax + 8)
+
+
+def proposal_smem_bytes(s0: int, s1: int, s2: int) -> int:
+    """K3's (proposal.cu): alignment slack, both levels' packs, the density
+    block's work area, the proposal state."""
+    return 1024 + 2 * DENSITY_PACK_SPAN + DENSITY_WORK + proposal_state_bytes(s0, s1, s2)
 
 
 def field_composite_smem_bytes(s2: int) -> int:
@@ -472,13 +441,12 @@ def field_composite_smem_bytes(s2: int) -> int:
     return field_smem_bytes() + 4 * FIELD_RAYS * ((s2 + 1) + 4 * s2 + 6)
 
 
-def mega_pipeline_smem_bytes(ld: int, s0: int, s1: int, s2: int) -> int:
-    """K5's (mega_pipeline.cu): the field stage with its slabs' region
-    shared by the proposal stage's wmma buffers at row stride `ld`, the
-    proposal state per ray and the per-sample colours."""
-    smax = max(s0, s1, s2)
-    return (field_smem_bytes(max(2 * SLAB_BYTES, mlp_smem_bytes(ld, 1)))
-            + 4 * FIELD_RAYS * (4 * (smax + 1) + smax + 8) + 4 * FIELD_RAYS * s2 * 3)
+def mega_pipeline_smem_bytes(s0: int, s1: int, s2: int) -> int:
+    """K5's (mega_pipeline.cu): the field stage, whose slabs' region holds
+    the two field slabs (where the proposal stage's packs sit between field
+    stages) and the density block's work area, then the proposal state and
+    the per-sample colours."""
+    return field_smem_bytes(2 * SLAB_BYTES + DENSITY_WORK) + proposal_state_bytes(s0, s1, s2) + 4 * FIELD_RAYS * s2 * 3
 
 
 def launch(name: str, *args, count_as: str | None = None) -> None:

@@ -19,8 +19,9 @@ staged query's deterministic serving mode (bin centres, no jitter).
 
 The inverse CDF: the TPU kernel evaluates it as a telescoped sum of ReLU
 ramps (exact up to ~1e-4 of the spacing range from cancellation); the port
-walks the CDF and interpolates within the segment, which is the same
-piecewise-linear function without that cancellation.
+finds each u's CDF segment (a binary search in the kernels, one warp a
+ray) and interpolates within it, which is the same piecewise-linear
+function without that cancellation.
 
 Each kernel has a plain PyTorch twin (`_plain_proposal`,
 `_plain_field_composite`, `_plain_mega_pipeline`, `_plain_proposal`'s
@@ -146,18 +147,23 @@ def _launch_proposal(name, mode_args, count_as, o_t, d_t, near_t, far_t, ws0, bs
                      s1, s2, freqs0, freqs1, aabb_lo, aabb_inv_ext, disable_box, avg_density):
     n = o_t.shape[1]
     _check_rays(o_t, d_t, near_t, far_t)
-    mlp0 = kernels.PackedMlp(ws0, bs0, device=o_t.device)
-    mlp1 = kernels.PackedMlp(ws1, bs1, device=o_t.device)
+    packs = _proposal_packs(ws0, bs0, ws1, bs1, o_t.device)
     out = torch.empty(s2 + 1, n, dtype=torch.float32, device=o_t.device)
     kernels.launch(
         name, *mode_args,
         kernels.ptr(o_t), kernels.ptr(d_t), kernels.ptr(near_t), kernels.ptr(far_t), kernels.i64(n),
-        *mlp0.args(), *mlp1.args(),
+        *[kernels.ptr(pk.buffer) for pk in packs],
         kernels.box_consts(aabb_lo, aabb_inv_ext, disable_box, avg_density),
         kernels.i32(freqs0), kernels.i32(freqs1), kernels.i32(s0), kernels.i32(s1), kernels.i32(s2),
-        kernels.i32(max(mlp0.ld, mlp1.ld)), kernels.ptr(out), count_as=count_as,
+        kernels.ptr(out), count_as=count_as,
     )
     return out
+
+
+def _proposal_packs(ws0, bs0, ws1, bs1, device):
+    """Both proposal MLPs (f-major first-layer rows) packed for the density
+    block of K3's and K5's proposal stage (`kernels.DensityPack`)."""
+    return kernels.DensityPack(ws0, bs0, device=device), kernels.DensityPack(ws1, bs1, device=device)
 
 
 def proposal_bins(o_t, d_t, near_t, far_t, ws0, bs0, ws1, bs1, *, s0, s1, s2, freqs0, freqs1,
@@ -292,43 +298,33 @@ def mega_pipeline(o_t, d_t, near_t, far_t, emb, ws0, bs0, ws1, bs1, bws, bbs, hw
                                     hbs, **kw)
     n = o_t.shape[1]
     field = _check_field(o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs)
-    mlp0 = kernels.PackedMlp(ws0, bs0, device=o_t.device)
-    mlp1 = kernels.PackedMlp(ws1, bs1, device=o_t.device)
+    packs = _proposal_packs(ws0, bs0, ws1, bs1, o_t.device)
     out = torch.empty(3, n, dtype=torch.float32, device=o_t.device)
     aux = torch.empty(4, n, dtype=torch.float32, device=o_t.device) if with_aux else None
     kernels.launch(
         "mega_pipeline",
         kernels.ptr(o_t), kernels.ptr(d_t), kernels.ptr(near_t), kernels.ptr(far_t),
         kernels.ptr(emb), kernels.i32(emb.shape[0]), kernels.i64(n),
-        *mlp0.args(), *mlp1.args(), *field.args(),
+        *[kernels.ptr(pk.buffer) for pk in packs], *field.args(),
         kernels.box_consts(aabb_lo, aabb_inv_ext, disable_box, avg_density),
         kernels.i32(freqs0), kernels.i32(freqs1), kernels.i32(freqs), kernels.i32(s0),
-        kernels.i32(s1), kernels.i32(s2), kernels.i32(mega_ld(mlp0, mlp1)),
-        kernels.i32(int(hdr)), kernels.f32(rgb_bias), kernels.ptr(out),
+        kernels.i32(s1), kernels.i32(s2), kernels.i32(int(hdr)), kernels.f32(rgb_bias), kernels.ptr(out),
         kernels.ptr(aux) if with_aux else None,
     )
     return (out, aux) if with_aux else out
 
 
-def mega_ld(mlp0, mlp1) -> int:
-    """K5's wmma row stride, that of its proposal stage: the wider of its two
-    proposal MLPs' (`kernels.PackedMlp.ld`). The field stage runs on wgmma
-    slabs of its own layout; the proposal stage's buffers share their
-    memory (kernels.mega_pipeline_smem_bytes)."""
-    return max(mlp0.ld, mlp1.ld)
-
-
 def check_query_shapes(p: dict, s0: int, s1: int, s2: int) -> None:
-    """Raise ValueError unless K4 and K5 take the model of named parameters
-    `p` at these sample counts: the wgmma field takes its widths
-    (`kernels.check_field_widths`) and both kernels' shared memory fits a
-    block."""
-    shapes = {k: [w.shape for w in _mlp_params(p, k)[0]]
-              for k in ("proposal_0.mlp", "proposal_1.mlp", "field.base_mlp", "field.head_mlp")}
+    """Raise ValueError unless K3, K4 and K5 take the model of named
+    parameters `p` at these sample counts: the wgmma field takes its widths
+    (`kernels.check_field_widths`) and the kernels' shared memory fits a
+    block. (The proposal MLPs' widths are checked with the staged query's,
+    `check_staged_shapes`.)"""
+    shapes = {k: [w.shape for w in _mlp_params(p, k)[0]] for k in ("field.base_mlp", "field.head_mlp")}
     kernels.check_field_widths(shapes["field.base_mlp"], shapes["field.head_mlp"])
-    ld = max(kernels.mlp_ld(shapes["proposal_0.mlp"]), kernels.mlp_ld(shapes["proposal_1.mlp"]))
-    for name, need in (("K4", kernels.field_composite_smem_bytes(s2)),
-                       ("K5", kernels.mega_pipeline_smem_bytes(ld, s0, s1, s2))):
+    for name, need in (("K3", kernels.proposal_smem_bytes(s0, s1, s2)),
+                       ("K4", kernels.field_composite_smem_bytes(s2)),
+                       ("K5", kernels.mega_pipeline_smem_bytes(s0, s1, s2))):
         if need > kernels.SMEM_LIMIT:
             raise ValueError(f"{name} needs {need} bytes of shared memory at samples "
                              f"({s0}, {s1}, {s2}), more than a block's {kernels.SMEM_LIMIT}")

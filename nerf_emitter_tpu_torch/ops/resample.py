@@ -9,7 +9,8 @@ signature and never read, as in the script's kernel body.
 
 Forms of R: "ramp" is the TPU's telescoped ReLU-ramp sum (the script's
 `scalar-u`; its `scalar-u-mxu` variant computes the same sum with the row
-reduce on the TPU's matrix unit); "walk" is K3's CDF walk. The two agree
+reduce on the TPU's matrix unit); "walk" is K3's resample (each u's CDF
+segment found and interpolated within, one warp a ray). The two agree
 to the ramp's cancellation error, ~1e-4 of the spacing range.
 """
 

@@ -2,7 +2,8 @@
 forms (port of scripts/profile_resample.py): "ramp", the TPU kernel's
 telescoped ReLU-ramp sum (the reference's `scalar-u`, whose `scalar-u-mxu`
 variant only moves the same sum's row reduce onto the TPU's matrix unit),
-and "walk", K3's CDF walk. Prints each form's time and its max |diff|
+and "walk", K3's resample (a CDF segment search per u, one warp a ray).
+Prints each form's time and its max |diff|
 against the ramp form:
 
     python -m nerf_emitter_tpu_torch.scripts.profile_resample

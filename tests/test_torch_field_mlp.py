@@ -132,17 +132,15 @@ def test_query_build_raises_on_an_unsupported_field_width():
 
 def test_shared_memory_fits_at_the_main_path_shapes():
     """K4 and K5 at samples (256, 96, 48) and the sdf-nerfacto widths fit a
-    block's 232,448 bytes: K4 173,856, K5 211,904 (the ring 98,304, the
-    slabs 65,536, which the proposal stage's 43,264 bytes of wmma buffers
-    share, the proposal state 41,344, the colours 4,608)."""
-    p = tff.named_params(_model())
-    props = [kernels.PackedMlp(*tff._mlp_params(p, f"proposal_{i}.mlp"), device=torch.device("cpu"))
-             for i in (0, 1)]
-    ld = tmq.mega_ld(*props)
-    k4, k5 = kernels.field_composite_smem_bytes(48), kernels.mega_pipeline_smem_bytes(ld, 256, 96, 48)
-    assert (k4, k5) == (173856, 211904)
+    block's 232,448 bytes: K4 173,856, K5 228,816 (the ring 98,304, the
+    field slabs 65,536, where the proposal stage's two packs, 36,864 bytes,
+    sit between field stages, the density block's work area 16,912, the
+    proposal state 41,344, the colours 4,608)."""
+    k4, k5 = kernels.field_composite_smem_bytes(48), kernels.mega_pipeline_smem_bytes(256, 96, 48)
+    assert (k4, k5) == (173856, 228816)
     assert max(k4, k5) <= kernels.SMEM_LIMIT == 232448
-    assert kernels.mlp_smem_bytes(ld, 1) == 43264 <= 2 * kernels.SLAB_BYTES
+    assert 2 * kernels.DENSITY_PACK_SPAN == 36864 <= 2 * kernels.SLAB_BYTES
+    assert k5 == kernels.field_smem_bytes() + kernels.DENSITY_WORK + kernels.proposal_state_bytes(256, 96, 48) + 4608
 
 
 def test_query_build_raises_when_shared_memory_does_not_fit():
@@ -154,15 +152,16 @@ def test_query_build_raises_when_shared_memory_does_not_fit():
 
 
 def test_mega_ld_and_the_ray_group_constants():
-    """K5's wmma row stride is its proposal MLPs' (128 wide + 8), not the
-    field's; the query pads rays to 128-ray tiles, which split into whole
+    """K5's proposal stage takes its MLPs as density packs (one 17,424-byte
+    buffer each, the main path's F=4 and F=6 proposals alike), not as row
+    strides; the query pads rays to 128-ray tiles, which split into whole
     8-ray groups, and an 8-ray group of 48 samples into whole 128-row
     passes of two 64-row warpgroups."""
     p = tff.named_params(_model())
-    props = [kernels.PackedMlp(*tff._mlp_params(p, f"proposal_{i}.mlp"), device=torch.device("cpu"))
+    packs = [kernels.DensityPack(*tff._mlp_params(p, f"proposal_{i}.mlp"), device=torch.device("cpu"))
              for i in (0, 1)]
-    assert tmq.mega_ld(*props) == max(m.ld for m in props) == 136
-    assert kernels.mlp_ld([w.shape for w in tff._mlp_params(p, "field.base_mlp")[0]]) == 264
+    assert [pk.buffer.numel() for pk in packs] == [kernels.DENSITY_PACK_BYTES] * 2 == [17424] * 2
+    assert not hasattr(tmq, "mega_ld") and not hasattr(kernels, "PackedMlp")
     assert tmq.TILE_RAYS % kernels.FIELD_RAYS == 0
     assert kernels.PASS_ROWS == 2 * kernels.WG_ROWS
     assert kernels.FIELD_RAYS * 48 % kernels.PASS_ROWS == 0
