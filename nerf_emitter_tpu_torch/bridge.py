@@ -5,6 +5,11 @@ example `jax.tree.map(np.asarray, params)`), with or without the top-level
 "params" key. Dense layers are `<path>/{hidden_i,out}/{kernel (in, out),
 bias}`; the port's nn.Linear weight is (out, in), so kernels are
 transposed. The appearance table is `field/appearance_embedding/embedding`.
+Raw parameters keep their flax names and layout: the hash tables
+`field/hash_table` and `proposal_{0,1}/hash_table` (T, F), and the pose
+deltas `camera_opt_deltas` and `rotation_opt_deltas` (n, 6). The distilled
+student's tree (`hidden_{i}`, `out`) loads into `EmitterLightField` the
+same way.
 """
 
 from __future__ import annotations
@@ -14,6 +19,9 @@ from typing import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+# parameters that sit on no nn.Linear / nn.Embedding, by their own name
+_RAW = ("hash_table", "camera_opt_deltas", "rotation_opt_deltas")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -36,6 +44,8 @@ def _flax_path(module: nn.Module, torch_name: str) -> tuple[str, bool]:
         return f"{path}/embedding", False
     if isinstance(owner, nn.Linear):
         return (f"{path}/kernel", True) if leaf == "weight" else (f"{path}/bias", False)
+    if leaf in _RAW:
+        return (f"{path}/{leaf}" if path else leaf), False
     raise KeyError(f"no flax counterpart for parameter {torch_name!r}")
 
 

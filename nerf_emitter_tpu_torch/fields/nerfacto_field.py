@@ -1,5 +1,7 @@
 """NerfactoField (HDR) and the proposal density field (port of
-nerf_emitter_tpu/fields/nerfacto_field.py), `implementation="freq"` only.
+nerf_emitter_tpu/fields/nerfacto_field.py), with both position encodings:
+`implementation="hash"` (the multi-resolution hash grid, a `hash_table`
+parameter) and `implementation="freq"` (frequency encoding, wider MLPs).
 
 - density = safe_exp(raw - 1), zeroed outside the contracted [0,1]^3
   domain (the selector) and, when `disable_aabb_on`, inside the object box
@@ -17,13 +19,8 @@ from torch import nn
 
 from ..ops.spatial_distortions import contracted_to_unit, fake_contraction, scene_contraction_inf
 from ..utils.math import safe_exp
-from .encodings import nerf_encode, sh_encode
+from .encodings import HashGridSpec, hash_encode, nerf_encode, sh_encode
 from .mlp import MLP
-
-_HASH_TODO = (
-    "implementation='hash' is not ported yet (ROADMAP.md, Queue 1 item 1: "
-    "hash_encode); use implementation='freq'"
-)
 
 
 def _contract(positions: torch.Tensor, aabb: torch.Tensor, use_fake_contraction: bool) -> torch.Tensor:
@@ -33,6 +30,22 @@ def _contract(positions: torch.Tensor, aabb: torch.Tensor, use_fake_contraction:
         unit = (positions - aabb[0]) / (aabb[1] - aabb[0])
         contracted = scene_contraction_inf(unit * 2.0 - 1.0)
     return contracted_to_unit(contracted)
+
+
+def _check_implementation(implementation: str) -> None:
+    if implementation not in ("hash", "freq"):
+        raise ValueError(f"implementation must be 'hash' or 'freq', got {implementation!r}")
+
+
+def _encode(module, unit: torch.Tensor) -> torch.Tensor:
+    """Contracted unit positions (M, 3) -> the MLP's input features."""
+    if module.implementation == "hash":
+        return hash_encode(module.hash_table, unit, module.grid_spec)
+    return nerf_encode(
+        unit * 2.0 - 1.0,
+        num_frequencies=module.freq_num_frequencies,
+        max_freq_exp=float(module.freq_num_frequencies - 1),
+    )
 
 
 def _carve_out(density, flat, disable_aabb, disable_aabb_on):
@@ -45,14 +58,21 @@ def _carve_out(density, flat, disable_aabb, disable_aabb_on):
 
 
 class NerfactoField(nn.Module):
-    """Frequency-encoded radiance field: nerf_encode(F) -> base MLP
-    (density + geo features) -> [SH(dirs), geo, appearance] -> rgb head."""
+    """Radiance field: hash_encode or nerf_encode(F) -> base MLP (density +
+    geo features) -> [SH(dirs), geo, appearance] -> rgb head."""
 
     def __init__(
         self,
         aabb,
         *,
+        num_levels: int = 16,
+        features_per_level: int = 2,
+        log2_hashmap_size: int = 19,
+        min_res: int = 16,
+        max_res: int = 2048,
         geo_feat_dim: int = 15,
+        hidden_dim: int = 64,
+        num_layers: int = 2,
         hidden_dim_color: int = 64,
         num_layers_color: int = 3,
         appearance_embedding_dim: int = 32,
@@ -69,9 +89,9 @@ class NerfactoField(nn.Module):
         device=None,
     ):
         super().__init__()
-        if implementation != "freq":
-            raise NotImplementedError(_HASH_TODO)
+        _check_implementation(implementation)
         self.register_buffer("aabb", torch.as_tensor(aabb, dtype=torch.float32, device=device))
+        self.implementation = implementation
         self.geo_feat_dim = geo_feat_dim
         self.appearance_embedding_dim = appearance_embedding_dim
         self.sh_degree = sh_degree
@@ -80,9 +100,16 @@ class NerfactoField(nn.Module):
         self.use_fake_contraction = use_fake_contraction
         self.average_init_density = average_init_density
         self.freq_num_frequencies = freq_num_frequencies
+        if implementation == "hash":
+            self.grid_spec = HashGridSpec(num_levels, features_per_level, log2_hashmap_size,
+                                          min_res, max_res)
+            self.hash_table = nn.Parameter(self.grid_spec.init_table(device=device))
+            in_dim, base_layers, base_width = self.grid_spec.out_dim, num_layers, hidden_dim
+        else:
+            in_dim = 3 * (2 * freq_num_frequencies + 1)
+            base_layers, base_width = freq_num_layers, freq_hidden_dim
         self.base_mlp = MLP(
-            3 * (2 * freq_num_frequencies + 1), 1 + geo_feat_dim,
-            num_layers=freq_num_layers, layer_width=freq_hidden_dim, device=device,
+            in_dim, 1 + geo_feat_dim, num_layers=base_layers, layer_width=base_width, device=device,
         )
         self.head_mlp = MLP(
             sh_degree**2 + geo_feat_dim + appearance_embedding_dim, 3,
@@ -104,12 +131,7 @@ class NerfactoField(nn.Module):
         flat = positions.reshape(-1, 3)
         unit = _contract(flat, self.aabb, self.use_fake_contraction)
         selector = torch.all((unit >= 0.0) & (unit <= 1.0), dim=-1, keepdim=True)
-        feats = nerf_encode(
-            unit * 2.0 - 1.0,
-            num_frequencies=self.freq_num_frequencies,
-            max_freq_exp=float(self.freq_num_frequencies - 1),
-        )
-        h = self.base_mlp(feats)
+        h = self.base_mlp(_encode(self, unit))
         density = self.average_init_density * safe_exp(h[..., :1] - 1.0)
         density = density * selector.to(density.dtype)
         density = _carve_out(density, flat, disable_aabb, disable_aabb_on)
@@ -147,13 +169,21 @@ class NerfactoField(nn.Module):
 
 
 class HashMLPDensityField(nn.Module):
-    """Proposal density field: nerf_encode(F) -> one wide hidden layer ->
-    density; same contraction and carve-out as the field."""
+    """Proposal density field: a coarse hash grid and a narrow MLP, or
+    nerf_encode(F) and one wide hidden layer -> density; same contraction
+    and carve-out as the field."""
 
     def __init__(
         self,
         aabb,
         *,
+        num_levels: int = 5,
+        features_per_level: int = 2,
+        log2_hashmap_size: int = 17,
+        min_res: int = 16,
+        max_res: int = 128,
+        hidden_dim: int = 16,
+        num_layers: int = 2,
         use_fake_contraction: bool = True,
         average_init_density: float = 1.0,
         implementation: str = "hash",
@@ -163,27 +193,26 @@ class HashMLPDensityField(nn.Module):
         device=None,
     ):
         super().__init__()
-        if implementation != "freq":
-            raise NotImplementedError(_HASH_TODO)
+        _check_implementation(implementation)
         self.register_buffer("aabb", torch.as_tensor(aabb, dtype=torch.float32, device=device))
+        self.implementation = implementation
         self.use_fake_contraction = use_fake_contraction
         self.average_init_density = average_init_density
         self.freq_num_frequencies = freq_num_frequencies
-        self.mlp = MLP(
-            3 * (2 * freq_num_frequencies + 1), 1,
-            num_layers=freq_num_layers, layer_width=freq_hidden_dim, device=device,
-        )
+        if implementation == "hash":
+            self.grid_spec = HashGridSpec(num_levels, features_per_level, log2_hashmap_size,
+                                          min_res, max_res)
+            self.hash_table = nn.Parameter(self.grid_spec.init_table(device=device))
+            in_dim, n_layers, width = self.grid_spec.out_dim, num_layers, hidden_dim
+        else:
+            in_dim, n_layers, width = 3 * (2 * freq_num_frequencies + 1), freq_num_layers, freq_hidden_dim
+        self.mlp = MLP(in_dim, 1, num_layers=n_layers, layer_width=width, device=device)
 
     def forward(self, positions: torch.Tensor, *, disable_aabb=None, disable_aabb_on: bool = False):
         shape = positions.shape[:-1]
         flat = positions.reshape(-1, 3)
         unit = _contract(flat, self.aabb, self.use_fake_contraction)
         selector = torch.all((unit >= 0.0) & (unit <= 1.0), dim=-1, keepdim=True)
-        feats = nerf_encode(
-            unit * 2.0 - 1.0,
-            num_frequencies=self.freq_num_frequencies,
-            max_freq_exp=float(self.freq_num_frequencies - 1),
-        )
-        density = self.average_init_density * safe_exp(self.mlp(feats) - 1.0)
+        density = self.average_init_density * safe_exp(self.mlp(_encode(self, unit)) - 1.0)
         density = density * selector.to(density.dtype)
         return _carve_out(density, flat, disable_aabb, disable_aabb_on).reshape(shape)

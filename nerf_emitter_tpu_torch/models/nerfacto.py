@@ -1,9 +1,10 @@
-"""NerfactoModel (HDR) for the `freq` field (port of
-nerf_emitter_tpu/models/nerfacto.py), eval forward only.
+"""NerfactoModel (HDR) with the `hash` or `freq` field (port of
+nerf_emitter_tpu/models/nerfacto.py): the eval forward, the turntable and
+pose-delta hooks, and `point_lights`.
 
 `forward(rays, hdr_radiance_only=True)` is the emitter query's plain path;
 without it the eval outputs are rgb, accumulation and depth. Training
-outputs, `point_lights` and the rotater hook are later slices.
+outputs are a later slice.
 """
 
 from __future__ import annotations
@@ -16,14 +17,24 @@ from torch import nn
 
 from ..cameras.rays import RayBundle
 from ..fields.nerfacto_field import HashMLPDensityField, NerfactoField
+from ..fields.rotater import exp_so3
 from ..ops import rendering
 from ..ops.samplers import proposal_sample
 from ..utils.device import resolve_device
+from ..utils.math import luminance
 
 
 class NerfactoModel(nn.Module):
-    """HDR nerfacto: two proposal density fields (F=4 and F=6, one hidden
-    layer of 128) and the radiance field (F=10, 6x256 base, 3x64 head)."""
+    """HDR nerfacto: two proposal density fields and the radiance field.
+    `freq`: proposals F=4 and F=6 with one hidden layer of 128, the field
+    F=10 with a 6x256 base; `hash`: proposal grids up to 64 and 256 (2^17
+    tables), the field's grid up to `max_res` (2^log2_hashmap_size tables)
+    with a 2x64 base. Both: a 3x64 head.
+
+    `optimize_camera_poses` adds `camera_opt_deltas` (num_cameras, 6), a
+    per-camera SO3xR3 correction of the rays; `optimize_rotations` with
+    `num_rotations` adds `rotation_opt_deltas` (num_rotations, 6), the
+    turntable's per-rotation correction. Both start at zero."""
 
     def __init__(
         self,
@@ -40,6 +51,11 @@ class NerfactoModel(nn.Module):
         single_jitter: bool = True,
         depth_method: str = "median",
         implementation: str = "hash",
+        log2_hashmap_size: int = 19,
+        max_res: int = 2048,
+        optimize_camera_poses: bool = False,
+        optimize_rotations: bool = False,
+        num_rotations: int = 0,
         device=None,
     ):
         super().__init__()
@@ -55,18 +71,27 @@ class NerfactoModel(nn.Module):
         self.single_jitter = single_jitter
         self.depth_method = depth_method
         self.implementation = implementation
+        self.num_cameras = num_cameras
+        self.optimize_camera_poses = optimize_camera_poses
+        self.optimize_rotations = optimize_rotations
+        self.num_rotations = num_rotations
+        if optimize_camera_poses:
+            self.camera_opt_deltas = nn.Parameter(torch.zeros(num_cameras, 6, device=device))
+        if optimize_rotations and num_rotations > 0:
+            self.rotation_opt_deltas = nn.Parameter(torch.zeros(num_rotations, 6, device=device))
         self.field = NerfactoField(
             aabb, hdr=hdr, rgb_bias=rgb_bias, num_cameras=num_cameras,
             appearance_embedding_dim=appearance_embedding_dim,
+            log2_hashmap_size=log2_hashmap_size, max_res=max_res,
             use_fake_contraction=use_fake_contraction,
             implementation=implementation, device=device,
         )
         self.proposal_0 = HashMLPDensityField(
-            aabb, use_fake_contraction=use_fake_contraction,
+            aabb, max_res=64, log2_hashmap_size=17, use_fake_contraction=use_fake_contraction,
             implementation=implementation, freq_num_frequencies=4, device=device,
         )
         self.proposal_1 = HashMLPDensityField(
-            aabb, use_fake_contraction=use_fake_contraction,
+            aabb, max_res=256, log2_hashmap_size=17, use_fake_contraction=use_fake_contraction,
             implementation=implementation, freq_num_frequencies=6, device=device,
         )
 
@@ -95,16 +120,41 @@ class NerfactoModel(nn.Module):
         disable_aabb_on: bool = False,
         use_average_appearance: bool = False,
         hdr_radiance_only: bool = False,
+        rotater=None,
+        camera_rot_ids: Optional[torch.Tensor] = None,
+        rotation_radius: float = 0.6,
     ) -> dict[str, Any]:
         """rays (n, ...) -> {'rgb'} or {'rgb', 'accumulation', 'depth'}.
-        Deterministic (bin-centre) sampling; differentiable end to end."""
+        Deterministic (bin-centre) sampling; differentiable end to end.
+
+        rotater + camera_rot_ids (num_cameras,) enable the turntable: sample
+        positions inside `rotation_radius` of the rotater's centre are
+        inverse-rotated into the canonical object frame by the rotation id
+        of the ray's camera."""
         if train:
             raise NotImplementedError(
                 "training outputs are not ported yet (ROADMAP.md, Queue 1 item 3)"
             )
+        if self.optimize_camera_poses and ray_bundle.camera_indices is not None:
+            d6 = self.camera_opt_deltas[ray_bundle.camera_indices[..., 0]]
+            rot = exp_so3(d6[..., :3])
+            ray_bundle = ray_bundle.replace(
+                origins=torch.einsum("nij,nj->ni", rot, ray_bundle.origins) + d6[..., 3:],
+                directions=torch.einsum("nij,nj->ni", rot, ray_bundle.directions),
+            )
+        use_rotater = rotater is not None and camera_rot_ids is not None
+        if use_rotater and self.optimize_rotations and self.num_rotations > 0:
+            rotater = rotater.replace(deltas=self.rotation_opt_deltas)
+
+        def rotate_samples(pos, cam, dirs=None):
+            """World -> canonical inside the turntable sphere; cam (n, 1)."""
+            rid = camera_rot_ids[cam[..., 0]]
+            return rotater.apply_positions_within(rid, pos, dirs, rotation_radius)
 
         def make_density_fn(net):
             def fn(pos, cam: Optional[torch.Tensor]):
+                if use_rotater:
+                    pos, _ = rotate_samples(pos, cam)
                 return net(pos, disable_aabb=disable_aabb, disable_aabb_on=disable_aabb_on)
             return fn
 
@@ -117,6 +167,8 @@ class NerfactoModel(nn.Module):
         )
         positions = ray_samples.frustums.get_positions()
         dirs = ray_bundle.directions[..., None, :].expand(positions.shape)
+        if use_rotater:
+            positions, dirs = rotate_samples(positions, ray_samples.camera_indices, dirs)
         density, geo = self.field.get_density(
             positions, disable_aabb=disable_aabb, disable_aabb_on=disable_aabb_on
         )
@@ -139,3 +191,47 @@ class NerfactoModel(nn.Module):
                 method=self.depth_method,
             ),
         }
+
+    def point_lights(
+        self,
+        ray_bundle: RayBundle,
+        *,
+        disable_aabb=None,
+        disable_aabb_on: bool = False,
+    ) -> dict[str, torch.Tensor]:
+        """Light point-cloud attributes for guiding: per-ray HDR radiance
+        over a black background, its luminance, the contrib depth (the
+        depth of the sample of largest weight x luminance) and
+        d(brightness)/d(origin) along the ray direction, by forward-mode AD
+        (`torch.func.jvp`) through the plain forward."""
+
+        def brightness_of(origins):
+            out = self(
+                ray_bundle.replace(origins=origins), disable_aabb=disable_aabb,
+                disable_aabb_on=disable_aabb_on, hdr_radiance_only=True,
+            )
+            return luminance(out["rgb"])
+
+        _, dbrightness = torch.func.jvp(brightness_of, (ray_bundle.origins,), (ray_bundle.directions,))
+        density_fns = [
+            lambda pos, cam, net=net: net(pos, disable_aabb=disable_aabb, disable_aabb_on=disable_aabb_on)
+            for net in self.proposal_networks
+        ]
+        ray_samples, _, _ = proposal_sample(
+            ray_bundle, density_fns, list(self.num_proposal_samples), self.num_nerf_samples,
+        )
+        positions = ray_samples.frustums.get_positions()
+        density, geo = self.field.get_density(
+            positions, disable_aabb=disable_aabb, disable_aabb_on=disable_aabb_on
+        )
+        dirs = ray_bundle.directions[..., None, :].expand(positions.shape)
+        rgb_samples = self.field.get_rgb(geo, dirs, ray_samples.camera_indices)
+        weights = ray_samples.get_weights(density)
+        rgb = rendering.composite_rgb(rgb_samples, weights, background_color="black", hdr=True,
+                                      is_training=False)
+        depth = rendering.composite_depth(
+            weights, ray_samples.frustums.starts, ray_samples.frustums.ends,
+            method="contrib", values=luminance(rgb_samples),
+        )
+        return {"rgb": rgb, "luminance": luminance(rgb), "depth": depth,
+                "brightness_grad": dbrightness}

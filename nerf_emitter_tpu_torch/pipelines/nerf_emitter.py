@@ -1,6 +1,6 @@
 """The NeRF-as-emitter query closure (port of `make_nerf_emitter_fn` in
-nerf_emitter_tpu/pipelines/nerf_emitter.py). The two-phase pipeline itself
-is a later slice.
+nerf_emitter_tpu/pipelines/nerf_emitter.py) and the gate that picks what
+serves it. The two-phase pipeline itself is a later slice.
 """
 
 from __future__ import annotations
@@ -14,6 +14,30 @@ from ..models.nerfacto import NerfactoModel
 from ..ops.colliders import aabb_far_intersect_collider
 from ..ops.fused_field import named_params
 from ..utils import coords
+
+
+def id_column(value, shape, device) -> torch.Tensor:
+    """A long tensor of `shape` holding `value`, an int or a tensor (for
+    example a device-side draw). An int is filled in on the device: a
+    host-to-device copy of it would synchronise the stream on every call."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device).long().expand(shape)
+    return torch.full(shape, int(value), dtype=torch.long, device=device)
+
+
+def serves_kernel_query(model, use_fused: bool) -> bool:
+    """Whether the emitter query runs on the kernel query (K5, or K3 + K4)
+    rather than the model's forward: only for `implementation == "freq"`
+    with the fake contraction (what the kernels compute) on a model on
+    CUDA, and only when asked (`use_fused`). The reference gates the same
+    way (freq on its TPU backend). The decision reads the configuration
+    alone; a kernel that then fails to build or launch raises."""
+    return (
+        bool(use_fused)
+        and model.implementation == "freq"
+        and bool(model.use_fake_contraction)
+        and model.device.type == "cuda"
+    )
 
 
 def make_nerf_emitter_fn(
@@ -39,19 +63,21 @@ def make_nerf_emitter_fn(
       dict of its parameters; `detach_nerf` treats the radiance as a
       constant for the caller's backward (the NeRF gets no gradient);
     - `camera_index` picks the appearance embedding;
+    - `rotater` + `rot_id` map the canonical object-frame query ray into
+      the world (light) frame for turntable captures, after the collider
+      (the object box lives in the canonical frame; near and far are
+      distances along the ray, which the rigid rotation keeps);
     - `use_fused` serves the query through the kernel query
       (ops/mega_query.py: K5, or K3 + K4 under
-      NERF_EMITTER_MEGA_PIPELINED=0, read when this is called) when the
-      model lives on CUDA; on the CPU the model's own forward serves it
-      (the reference's TPU-backend gate);
+      NERF_EMITTER_MEGA_PIPELINED=0, read when this is called) where
+      `serves_kernel_query` says so; otherwise the model's own forward
+      serves it;
     - `samples_override` = (proposal_0, proposal_1, nerf) replaces the
       per-ray sample schedule for the emitter query only; counts must be
       multiples of 8.
 
-    The rotater and the multi-device mesh paths are later slices.
+    The multi-device mesh path is a later slice.
     """
-    if rotater is not None:
-        raise NotImplementedError("the rotater path is not ported yet (ROADMAP.md, Queue 1 item 1)")
     if mesh is not None or data_axis is not None:
         raise NotImplementedError("the multi-device query is not ported yet (ROADMAP.md, Queue 1 item 7)")
     if samples_override is not None:
@@ -64,7 +90,7 @@ def make_nerf_emitter_fn(
     device = model.device
     box = torch.as_tensor(object_aabb, dtype=torch.float32, device=device)
     fused_query = None
-    if use_fused and device.type == "cuda":
+    if serves_kernel_query(model, use_fused):
         from ..ops.mega_query import make_mega_radiance_query
 
         fused_query = make_mega_radiance_query(
@@ -80,8 +106,7 @@ def make_nerf_emitter_fn(
         def emitter_fn(x_unit: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
             o_w = coords.unit_to_world(x_unit, scene_scale)
             n = o_w.shape[0]
-            cam = torch.full((n, 1), 0 if camera_index is None else int(camera_index),
-                             dtype=torch.long, device=o_w.device)
+            cam = id_column(0 if camera_index is None else camera_index, (n, 1), o_w.device)
             rays = RayBundle(
                 origins=o_w,
                 directions=d,
@@ -91,6 +116,10 @@ def make_nerf_emitter_fn(
                 camera_indices=cam,
             )
             rays = aabb_far_intersect_collider(rays, box, far=far)
+            if rotater is not None and rot_id is not None:
+                rid = id_column(rot_id, (n,), o_w.device)
+                rays = rays.replace(origins=rotater.apply_points(rid, rays.origins),
+                                    directions=rotater.apply_dirs(rid, rays.directions))
             if fused_query is not None:
                 return fused_query(p, rays, camera_index=camera_index)
             out = torch.func.functional_call(

@@ -20,3 +20,10 @@ def luminance(rgb: torch.Tensor) -> torch.Tensor:
     """Rec.709 luminance; rgb: (..., 3) -> (...)."""
     luma = torch.tensor(_LUMA, dtype=rgb.dtype, device=rgb.device)
     return torch.sum(rgb * luma, dim=-1)
+
+
+def normalize(v: torch.Tensor, eps: float = 1e-24) -> torch.Tensor:
+    """L2-normalize the last axis; rsqrt(max(v.v, eps)) keeps the backward
+    finite at v = 0."""
+    n2 = torch.sum(v * v, dim=-1, keepdim=True)
+    return v * torch.rsqrt(torch.clamp(n2, min=eps))

@@ -1,0 +1,206 @@
+"""The port's distilled light-field cache against the JAX package: the
+student MLP on bridged weights, one fit step's loss and gradients, Adam with
+the cosine schedule against optax, the ray canonicalisation, the student
+closure's contract (tests/test_distill.py), and a fit to an analytic
+teacher."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from nerf_emitter_tpu.fields import rotater as jrot
+from nerf_emitter_tpu.serving import distill as jd
+from nerf_emitter_tpu_torch.bridge import load_flax_params
+from nerf_emitter_tpu_torch.fields.rotater import Rotater
+from nerf_emitter_tpu_torch.pipelines.nerf_emitter import make_nerf_emitter_fn
+from nerf_emitter_tpu_torch.renderer.emitters import VMFMixture
+from nerf_emitter_tpu_torch.serving import distill as td
+from test_torch_hash import OBJECT_BOX, hash_pair
+
+torch.set_num_threads(1)
+
+# bf16 student: both sides round the operands, the product and the biased
+# sum to bf16; f32 sums in another order flip a rounding now and then.
+# Measured on the raw log-radiance: bit-equal at 2x32, within 4.9e-4 at
+# 6x256 (values up to 0.16, where a bf16 ulp is 9.8e-4).
+RAW_ATOL = 2e-3
+
+
+def _inputs(n=64, emb_dim=4, seed=0):
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-0.4, 0.4, size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    emb = rng.normal(size=(n, emb_dim)).astype(np.float32)
+    return pos, d, emb
+
+
+def student_pair(hidden, depth, emb_dim=4, center=(0.05, -0.02, 0.0), scale=0.6):
+    """A flax EmitterLightField and the port's, with the same weights."""
+    jm = jd.EmitterLightField(hidden=hidden, depth=depth, pos_center=center, pos_scale=scale)
+    pos, d, emb = _inputs(8, emb_dim)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(pos), jnp.asarray(d), jnp.asarray(emb))
+    tm = td.EmitterLightField(hidden=hidden, depth=depth, pos_center=center, pos_scale=scale,
+                              emb_dim=emb_dim, device="cpu")
+    load_flax_params(tm, jax.tree.map(np.asarray, params))
+    return jm, params, tm
+
+
+@pytest.mark.parametrize("hidden,depth", [(32, 2), (256, 6)], ids=["small", "default"])
+def test_student_raw_output_matches_flax(hidden, depth):
+    """The raw log-radiance of the student against EmitterLightField.apply
+    on bridged weights (layers hidden_{i} and out)."""
+    jm, params, tm = student_pair(hidden, depth)
+    pos, d, emb = _inputs(256, seed=1)
+    ref = np.asarray(jm.apply(params, jnp.asarray(pos), jnp.asarray(d), jnp.asarray(emb)))
+    out = tm(torch.from_numpy(pos), torch.from_numpy(d), torch.from_numpy(emb)).detach().numpy()
+    assert out.shape == (256, 3) and out.dtype == np.float32
+    np.testing.assert_allclose(out, ref, rtol=0.0, atol=RAW_ATOL)
+    assert float(np.abs(ref).max()) > 0.1  # not a vacuous comparison
+
+
+def test_one_fit_step_matches_jax_value_and_grad():
+    """One step's loss mean((raw - target)^2) and its gradients for every
+    student weight, on one batch canonicalised by both packages, against
+    jax.value_and_grad. Held at 2% of each layer's largest component
+    (measured: the kernels' gradients bit-equal, the biases' within 0.65%,
+    since JAX sums the bias cotangent over the batch in bf16), the loss at
+    1e-5 relative (measured 8e-8)."""
+    jm, params, tm = student_pair(64, 3)
+    rng = np.random.default_rng(2)
+    x = rng.uniform(0.35, 0.65, size=(128, 3)).astype(np.float32)
+    d = rng.normal(size=(128, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    emb = np.tile(rng.normal(size=(1, 4)).astype(np.float32), (128, 1))
+    target = rng.normal(scale=0.5, size=(128, 3)).astype(np.float32)
+    kw = dict(scene_scale=1.0, far=1e3, rotater=None, rot_id=None)
+
+    def j_loss(p):
+        pos, dd = jd._canonical_inputs(jnp.asarray(x), jnp.asarray(d), object_aabb=jnp.asarray(OBJECT_BOX), **kw)
+        return jnp.mean((jm.apply(p, pos, dd, jnp.asarray(emb)) - target) ** 2)
+
+    ref_loss, ref_g = jax.value_and_grad(j_loss)(params)
+    pos, dd = td._canonical_inputs(torch.from_numpy(x), torch.from_numpy(d), object_aabb=OBJECT_BOX, **kw)
+    loss = torch.mean((tm(pos, dd, torch.from_numpy(emb)) - torch.from_numpy(target)) ** 2)
+    loss.backward()
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-5)
+    for name in [f"hidden_{i}" for i in range(3)] + ["out"]:
+        lin = getattr(tm, name)
+        for got, want in ((lin.weight.grad.numpy().T, ref_g["params"][name]["kernel"]),
+                          (lin.bias.grad.numpy(), ref_g["params"][name]["bias"])):
+            want = np.asarray(want)
+            assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max(), name
+
+
+def test_adam_with_cosine_decay_matches_optax():
+    """make_optimizer against optax.adam(optax.cosine_decay_schedule(lr, 5))
+    over 5 steps on fixed gradients: the step-0 update uses lr, the last
+    0.5 (1 + cos(4 pi / 5)) lr."""
+    rng = np.random.default_rng(3)
+    init = {"w": rng.normal(size=(6, 4)).astype(np.float32), "b": rng.normal(size=4).astype(np.float32)}
+    grads = [{k: rng.normal(size=v.shape).astype(np.float32) for k, v in init.items()} for _ in range(5)]
+    tx = optax.adam(optax.cosine_decay_schedule(2e-3, 5))
+    jp = {k: jnp.asarray(v) for k, v in init.items()}
+    state = tx.init(jp)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in init.items()}
+    opt, sched = td.make_optimizer(list(tp.values()), 2e-3, 5)
+    for g in grads:
+        updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
+        jp = optax.apply_updates(jp, updates)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k])
+        opt.step()
+        sched.step()
+        for k in init:
+            np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7)
+    assert [td.cosine_decay(5)(k) for k in (0, 5, 9)] == [1.0, 0.0, 0.0]
+
+
+@pytest.mark.parametrize("turntable", [False, True], ids=["plain", "rotater"])
+def test_canonical_inputs_match_jax(turntable):
+    """Exit point and direction after the collider (and the turntable
+    rotation), as make_nerf_emitter_fn canonicalises them."""
+    rng = np.random.default_rng(4)
+    x = rng.uniform(0.3, 0.7, size=(64, 3)).astype(np.float32)
+    d = rng.normal(size=(64, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    jr = jrot.Rotater.from_axis_angle(4, center=jnp.zeros(3)) if turntable else None
+    tr = Rotater.from_axis_angle(4, center=torch.zeros(3)) if turntable else None
+    rid = 2 if turntable else None
+    ref = jd._canonical_inputs(jnp.asarray(x), jnp.asarray(d), scene_scale=1.0,
+                               object_aabb=jnp.asarray(OBJECT_BOX), far=1e3, rotater=jr,
+                               rot_id=None if rid is None else jnp.int32(rid))
+    out = td._canonical_inputs(torch.from_numpy(x), torch.from_numpy(d), scene_scale=1.0,
+                               object_aabb=OBJECT_BOX, far=1e3, rotater=tr, rot_id=rid)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0.0, atol=1e-6)
+
+
+def test_student_contract_against_nerf_teacher():
+    """tests/test_distill.py's contract on the port: a short fit to the
+    tiny hash NeRF's emitter with a guiding mixture (and a turntable), then
+    the student closure answers (n, 3), finite and >= 0; the geometry
+    gradient flows; no NeRF parameter and no student weight gets one."""
+    _, _, pm = hash_pair()
+    rot = Rotater.from_axis_angle(4, center=torch.zeros(3))
+    teacher = make_nerf_emitter_fn(pm, 1.0, OBJECT_BOX, detach_nerf=True, rotater=rot)
+    guiding = VMFMixture(positions=torch.tensor([[0.5, 0.9, 0.5], [0.1, 0.5, 0.5]]),
+                         weights=torch.tensor([0.7, 0.3]), stds=torch.tensor([0.3, 0.5]))
+    student, fidelity, losses = td.distill_emitter(
+        torch.Generator().manual_seed(0), pm, teacher, scene_scale=1.0, object_aabb=OBJECT_BOX,
+        num_cameras=6, rotater=rot, n_rotations=4, guiding=guiding,
+        config=td.DistillConfig(steps=20, batch=256, hidden=32, depth=2, holdout_batches=1),
+        device="cpu",
+    )
+    assert set(fidelity) == {"relrms_linear", "rmse_log", "final_fit_loss"}
+    assert losses.shape == (20,) and bool(torch.isfinite(losses).all())
+    assert np.isfinite(fidelity["final_fit_loss"]) and fidelity["final_fit_loss"] == float(losses[-1])
+    assert student.hidden_0.in_features == 39 + 27 + 4  # pos, dir, appearance
+
+    fn_of = td.make_student_emitter_fn_of(student, scene_scale=1.0, object_aabb=OBJECT_BOX, rotater=rot)
+    x = torch.full((16, 3), 0.5, requires_grad=True)
+    d = torch.nn.functional.normalize(torch.randn(16, 3, generator=torch.Generator().manual_seed(1)), dim=-1)
+    rgb = fn_of(pm, camera_index=3, rot_id=1)(x, d)
+    assert rgb.shape == (16, 3)
+    assert bool(torch.isfinite(rgb).all()) and bool((rgb >= 0).all())
+    pm.zero_grad(set_to_none=True)
+    rgb.sum().backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+    assert all(p.grad is None or float(p.grad.abs().max()) == 0.0 for p in pm.parameters())
+    assert all(p.grad is None for p in student.parameters())
+
+
+def _analytic_teacher_fn_of(nerf, camera_index=None, rot_id=None):
+    """tests/test_distill.py's smooth HDR light field over the box-exit
+    point and direction (constant along a ray line)."""
+    def fn(x_unit, d):
+        exit_pos, dd = td._canonical_inputs(x_unit, d, scene_scale=1.0, object_aabb=OBJECT_BOX, far=1e3,
+                                            rotater=None, rot_id=None)
+        lobe = torch.clamp(dd @ torch.tensor([0.3, 0.8, 0.52]), min=0.0) ** 2
+        tint = 0.5 + 0.5 * torch.sin(3.0 * exit_pos)
+        return 2.0 * lobe[:, None] * tint + 0.05
+
+    return fn
+
+
+def test_distill_fits_an_analytic_teacher():
+    """A CPU-sized fit (800 steps, batch 256, 3x64, as the JAX test) of the analytic teacher
+    converges: the loss falls tenfold and the held-out errors are below
+    tests/test_distill.py's bars (relRMS 0.3, log RMSE 0.2)."""
+    student, fidelity, losses = td.distill_emitter(
+        torch.Generator().manual_seed(0), {}, _analytic_teacher_fn_of, scene_scale=1.0,
+        object_aabb=OBJECT_BOX, num_cameras=1,
+        config=td.DistillConfig(steps=800, batch=256, hidden=64, depth=3, holdout_batches=2),
+        device="cpu",
+    )
+    assert float(losses[-20:].mean()) < 0.1 * float(losses[:5].mean()), (losses[:5], losses[-20:])
+    assert fidelity["relrms_linear"] < 0.3 and fidelity["rmse_log"] < 0.2, fidelity
+    fn = td.make_student_emitter_fn_of(student, scene_scale=1.0, object_aabb=OBJECT_BOX)({})
+    x = torch.full((64, 3), 0.5)
+    d = torch.nn.functional.normalize(torch.randn(64, 3, generator=torch.Generator().manual_seed(2)), dim=-1)
+    with torch.no_grad():
+        pred, teacher = fn(x, d), _analytic_teacher_fn_of(None)(x, d)
+    assert float(((pred - teacher).abs() / (teacher + 1e-2)).mean()) < 0.3

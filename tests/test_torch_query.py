@@ -118,8 +118,11 @@ def test_query_builders_refuse_what_the_kernels_do_not_compute():
     for build in (make_fused_radiance_query, make_mega_radiance_query):
         with pytest.raises(ValueError, match="fake_contraction"):
             build(nonlinear, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NerfactoModel(AABB, device="cpu", implementation="hash")
+    hashed = NerfactoModel(AABB, device="cpu", num_cameras=4, appearance_embedding_dim=8,
+                           implementation="hash")
+    for build in (make_fused_radiance_query, make_mega_radiance_query):
+        with pytest.raises(ValueError, match="freq-only"):
+            build(hashed, device="cpu")
 
 
 @pytest.mark.parametrize("box", [None, OBJECT_BOX], ids=["nobox", "carveout"])
