@@ -15,9 +15,13 @@ held against the model forward's), runs the three profiling entry points at
 their own shapes, then the takeover's emitter as sdf-nerfacto ships it: K5
 at the gated and an overridden sample schedule, the `hash` model at
 bench.py's sizes, the turntable, the vMF guiding build, the distillation of
-the light-field cache with K5 as its teacher, and the distilled path. Every
-phase prints one JSON line; any failure raises and the script exits
-non-zero. The last line is {"ok": true, "device": {...}}.
+the light-field cache with K5 as its teacher, and the distilled path; then
+NeRF pretraining as sdf-nerfacto runs it (the `freq` model at full width,
+2^14 rays a batch, its losses, schedule and per-group Adam) on a synthetic
+scene of 64 views at 256^2, with a held-out view rendered before and after,
+and the trained field served through K5 and K3 + K4. Every phase prints
+one JSON line; any failure raises and the script exits non-zero. The last
+line is {"ok": true, "device": {...}}.
 
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -32,7 +36,9 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -47,6 +53,9 @@ CHECK_RAYS = 4096  # rays held against the model forward
 BACKWARD_RAYS = 1 << 14  # rays differentiated (the field twin's saved activations grow with them)
 ODD_RAYS = 1003  # leaves a part-filled group in K3, K4 and K5, and part-filled passes in K1 and K2
 GUIDE_CAMERAS, GUIDE_RES = 64, 256  # the light probes' ring: 64 x (256/4)^2 = 262,144 rays
+TRAIN_VIEWS, TRAIN_RES = 64, 256  # the pretraining scene: 64 x 256^2 HDR pixels, ~50 MB on the card
+TRAIN_RAYS = 1 << 14  # sdf-nerfacto's rays per batch
+TRAIN_STEPS = 100
 # the port's kernels' entry functions (csrc/*.cu), as the profiler names them
 KERNEL_ENTRIES = ("density_kernel", "field_kernel", "proposal_kernel", "field_composite_kernel",
                   "mega_pipeline_kernel", "field_mlp_kernel", "resample_kernel")
@@ -174,6 +183,96 @@ def frozen_brightness_difference(model, rays, box, h: float) -> torch.Tensor:
                                                  is_training=False))
 
     return (brightness(h) - brightness(-h)) / (2.0 * h)
+
+
+def pretrain(dev, seed: int, views: int = TRAIN_VIEWS, res: int = TRAIN_RES, rays: int = TRAIN_RAYS,
+             steps: int = TRAIN_STEPS):
+    """NeRF pretraining as sdf-nerfacto runs it (configs/methods.py:114-129):
+    the `freq` model with ModelSettings' defaults and one appearance vector
+    per train view; 2^14 rays a batch, near 0.05, far 1e3; rawnerf plus
+    relative_l1, interlevel 1.0, distortion 0.002; lr 1e-3 for the fields
+    and the proposals decaying to 1e-4 over 2,320 steps with the x0.01 drop
+    at step 2,000; the proposal anneal over 1,000 steps, slope 10. On the
+    synthetic scene (data/synthetic.py: views at res^2) parsed by the
+    instant-ngp parser (scene_scale 1/3, aabb_scale 1.5, a 0.9 train
+    fraction), `steps` steps from `seed`. A held-out view rendered (chunks
+    of 4,096 rays) before and after. Returns (model, the phase's record,
+    the checks); the caller raises on a failed check."""
+    from nerf_emitter_tpu_torch import kernels
+    from nerf_emitter_tpu_torch.data.datamanager import build_dataset
+    from nerf_emitter_tpu_torch.data.dataparsers.instant_ngp import InstantNGPDataparserConfig, parse_instant_ngp
+    from nerf_emitter_tpu_torch.data.synthetic import make_synthetic_dataset
+    from nerf_emitter_tpu_torch.engine.train_loop import (TrainConfig, create_train_state, eval_image_metrics,
+                                                          make_render_fn, make_train_step)
+    from nerf_emitter_tpu_torch.models.nerfacto import NerfactoModel
+    from nerf_emitter_tpu_torch.scripts.profiling import device_trace
+
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_dataset(Path(tmp), n_views=views, width=res, height=res, seed=seed)
+        dp = InstantNGPDataparserConfig(data=Path(tmp), scene_scale=1.0 / 3.0, aabb_scale=1.5, eval_mode="fraction")
+        ds = build_dataset(parse_instant_ngp(dp, "train"), device=dev)
+        eval_ds = build_dataset(parse_instant_ngp(dp, "val"), device=dev)
+    data_s = time.perf_counter() - t0
+    s = dp.aabb_scale
+    torch.manual_seed(seed + 6)
+    model = NerfactoModel(((-s,) * 3, (s,) * 3), num_cameras=len(ds.cameras), implementation="freq", device=dev)
+    config = TrainConfig(num_rays_per_batch=rays, near=0.05, far=1e3, rgb_loss="rawnerf",
+                         rgb_loss_second="relative_l1", interlevel_mult=1.0, distortion_mult=0.002,
+                         anneal_steps=1000, anneal_slope=10.0, max_steps=2320, lr_fields=1e-3, lr_proposal=1e-3,
+                         step_pretrain=2000)
+    state, optimizer = create_train_state(model, config)
+    step = make_train_step(model, config, optimizer)
+    render = make_render_fn(model, config, chunk=4096)
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+
+    def evaluate():
+        img = render(eval_ds.cameras, 0, eval_ds.images.shape[1], eval_ds.images.shape[2])["rgb"]
+        return eval_image_metrics(img, eval_ds.images[0], is_hdr=eval_ds.is_hdr)
+
+    eval_start = evaluate()
+    kernels.reset_launches()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    marks, hist = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        if cuda:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        hist.append(step(state, ds, gen))
+    if cuda:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = dict(kernels.launches)
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    ms = sum(step_ms[10:]) / len(step_ms[10:]) if len(step_ms) > 10 else None
+    table = {k: torch.stack([m[k] for m in hist]).float().cpu() for k in hist[0]}
+    window = min(10, steps // 2)
+    first = {k: float(v[:window].mean()) for k, v in table.items()}
+    last = {k: float(v[-window:].mean()) for k, v in table.items()}
+    # where a step's time goes: the device timeline of 3 steps (after the
+    # warm-up step device_trace takes), which train on
+    step_trace = device_trace(lambda: step(state, ds, gen), calls=3, top=8) if cuda else None
+    eval_end = evaluate()
+    rec = dict(phase="train", views=[len(ds.cameras), len(eval_ds.cameras)], res=res, rays_per_batch=rays,
+               steps=steps, steps_before_end_eval=state.step, data_s=data_s, train_s=train_s, ms_per_step=ms,
+               ms_per_step_over="steps 11-%d, CUDA events" % steps, rays_per_s=rays / (ms * 1e-3) if ms else None,
+               step_ms_first3=step_ms[:3], peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+               first10=first, last10=last, launches_during_training=train_launches,
+               eval_start=eval_start, eval_end=eval_end, lrs_end=optimizer.lrs(), trace_3_steps=step_trace)
+    finite = all(bool(torch.isfinite(v).all()) for v in table.values())
+    metrics_finite = all(math.isfinite(v) for m in (eval_start, eval_end) for v in m.values())
+    checks = {"losses_finite": finite,
+              "rgb_loss_fell_0.7x": last["rgb_loss"] < 0.7 * first["rgb_loss"],
+              "eval_metrics_finite": metrics_finite,
+              "eval_psnr_rose": eval_end["psnr"] > eval_start["psnr"],
+              "no_port_kernel_in_training": not train_launches}
+    return model, rec, checks
 
 
 def main() -> int:
@@ -1118,18 +1217,62 @@ def main() -> int:
     if student_launches or s_out.shape != (n, 3) or not bool(torch.isfinite(s_out).all()):
         raise AssertionError(f"the student's answer is not finite (n, 3) from plain PyTorch: {student_launches}")
     del student, s_fn, t_fn, s_out, t_out
+    torch.cuda.empty_cache()
 
-    # ---- phase 13: the kernels line. K5 carries the query (phase 3), the
-    # other schedules (phase 7), the turntable (phase 9) and the
-    # distillation's teacher (phase 11); K3 and K4 the two-kernel query
-    # (phase 3); K2 the staged query; K1 the backward (phase 4) and the
-    # staged query; the field MLP alone its own phase (one launch at the
-    # field's shape); P1-P3 the profiling scripts (phase 6). Each reports
-    # its launches in the runs of its own paths.
+    # ---- phase 13: NeRF pretraining (`pretrain`: sdf-nerfacto's model,
+    # batch, losses and schedule, 100 steps; the step is plain PyTorch and
+    # launches none of the port's kernels), then the trained field as the
+    # emitter: the main path's 2^16 rays at far = 4 through K5 (the default
+    # query) and through K3 + K4, K5 held against the model forward at the
+    # main path's bar (rtol 3e-2, atol 1e-3) and bit for bit against K3 + K4.
+    t_phase = time.perf_counter()
+    tmodel, train_rec, train_checks = pretrain(dev, args.seed)
+    trained_of = functools.partial(make_nerf_emitter_fn, tmodel, 1.0, OBJECT_BOX, far=4.0)
+    t_k5_fn = trained_of()(camera_index=0)
+    kernels.reset_launches()
+    with torch.no_grad():
+        t_k5 = t_k5_fn(x_unit, d)
+        torch.cuda.synchronize()
+    train_k5 = dict(kernels.launches)
+    os.environ["NERF_EMITTER_MEGA_PIPELINED"] = "0"
+    try:
+        t_two_fn = trained_of()(camera_index=0)
+    finally:
+        del os.environ["NERF_EMITTER_MEGA_PIPELINED"]
+    kernels.reset_launches()
+    with torch.no_grad():
+        t_two = t_two_fn(x_unit, d)
+        torch.cuda.synchronize()
+    train_two = dict(kernels.launches)
+    with torch.no_grad():
+        t_ref = trained_of(use_fused=False)(camera_index=0)(x_unit[:nc], d[:nc])
+        t_ms = cuda_ms(lambda: t_k5_fn(x_unit, d), 3)
+    train_checks |= {"k5_vs_model_far4": close(t_k5[:nc], t_ref, rtol=3e-2, atol=1e-3),
+                     "k5_bitwise_k3_k4_far4": same(t_k5, t_two)}
+    emitter_rec = dict(rays=n, far=4.0, ms_per_query=t_ms, rays_per_s=n / (t_ms * 1e-3),
+                       rgb_mean=float(t_k5.mean()), launches=train_k5, launches_two_kernel=train_two)
+    emit(train_rec | dict(phase_s=time.perf_counter() - t_phase, emitter=emitter_rec, checks=train_checks))
+    if train_k5 != {"mega_pipeline": 1} or train_two != {"proposal": 1, "field_composite": 1}:
+        raise AssertionError(f"the trained field's emitter did not run K5, then K3 + K4: {train_k5} {train_two}")
+    # a dict check holds by its bit equality where it has one, else by its bar
+    bad = [k for k, c in train_checks.items()
+           if not (c.get("bitwise", c["within"]) if isinstance(c, dict) else c)]
+    if bad:
+        raise AssertionError(f"train: failed checks {bad}: {train_checks}")
+    del tmodel, t_k5, t_two, t_ref, t_k5_fn, t_two_fn
+
+    # ---- phase 14: the kernels line. K5 carries the query (phase 3), the
+    # other schedules (phase 7), the turntable (phase 9), the
+    # distillation's teacher (phase 11) and the trained field's emitter
+    # (phase 13); K3 and K4 the two-kernel query (phases 3 and 13); K2 the
+    # staged query; K1 the backward (phase 4) and the staged query; the
+    # field MLP alone its own phase (one launch at the field's shape); P1-P3
+    # the profiling scripts (phase 6). Each reports its launches in the
+    # runs of its own paths.
     # `launches` sums a kernel's paths; `launches_by_path` splits them.
-    path_of = {"mega_pipeline": ["query", "schedules", "turntable", "distill"],
-               "proposal": ["two_kernel_query"], "field_mlp": ["field_mlp"],
-               "field_composite": ["two_kernel_query"], "fused_density": ["backward", "staged_query"],
+    path_of = {"mega_pipeline": ["query", "schedules", "turntable", "distill", "train"],
+               "proposal": ["two_kernel_query", "train"], "field_mlp": ["field_mlp"],
+               "field_composite": ["two_kernel_query", "train"], "fused_density": ["backward", "staged_query"],
                "fused_field": ["staged_query"], "profile_query.kernel_a": ["profile_query"],
                "profile_query.kernel_b": ["profile_query"]}
     path_of |= {f"proposal_variant[{m}]": ["profile_kernel_a"] for m in mq.PROPOSAL_MODES}
@@ -1137,7 +1280,8 @@ def main() -> int:
     counted_as = {"profile_query.kernel_a": "proposal", "profile_query.kernel_b": "field_composite"}
     counts = {"query": fwd_launches, "two_kernel_query": two_launches, "backward": bwd_launches,
               "staged_query": staged_launches, "field_mlp": mlp_launches, "schedules": sched_launches,
-              "turntable": tt_launches, "distill": distill_launches, **script_launches}
+              "turntable": tt_launches, "distill": distill_launches, "train": train_k5 | train_two,
+              **script_launches}
 
     def by_path(name):
         return {p: counts[p].get(counted_as.get(name, name), 0) for p in path_of[name]}

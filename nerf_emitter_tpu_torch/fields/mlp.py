@@ -26,17 +26,19 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None
 
 class MLP(nn.Module):
     """num_layers Linear layers (hidden_0 .. hidden_{L-2}, out) of width
-    layer_width with ReLU between them. Linear weights are (out, in)."""
+    layer_width with ReLU between them. Linear weights are (out, in), drawn
+    from `generator` (on `device`) when one is given, else from torch's
+    global generator."""
 
     def __init__(self, in_dim: int, out_dim: int, num_layers: int = 3, layer_width: int = 64,
-                 device=None):
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
         dims = [in_dim] + [layer_width] * (num_layers - 1) + [out_dim]
         names = [f"hidden_{i}" for i in range(num_layers - 1)] + ["out"]
         self.layer_names = names
         for name, k, n in zip(names, dims[:-1], dims[1:]):
             lin = nn.Linear(k, n, device=device)
-            lecun_normal_(lin.weight)
+            lecun_normal_(lin.weight, generator)
             nn.init.zeros_(lin.bias)
             self.add_module(name, lin)
 

@@ -1,10 +1,11 @@
 """NerfactoModel (HDR) with the `hash` or `freq` field (port of
-nerf_emitter_tpu/models/nerfacto.py): the eval forward, the turntable and
-pose-delta hooks, and `point_lights`.
+nerf_emitter_tpu/models/nerfacto.py): the eval and training forward, the
+turntable and pose-delta hooks, and `point_lights`.
 
 `forward(rays, hdr_radiance_only=True)` is the emitter query's plain path;
-without it the eval outputs are rgb, accumulation and depth. Training
-outputs are a later slice.
+without it the eval outputs are rgb, accumulation and depth, and with
+`train=True` also each level's weights and spacing bins and the final ray
+samples, which the interlevel and distortion losses read.
 """
 
 from __future__ import annotations
@@ -115,7 +116,9 @@ class NerfactoModel(nn.Module):
         self,
         ray_bundle: RayBundle,
         *,
+        generator: Optional[torch.Generator] = None,
         train: bool = False,
+        proposal_anneal: float = 1.0,
         disable_aabb=None,
         disable_aabb_on: bool = False,
         use_average_appearance: bool = False,
@@ -124,17 +127,23 @@ class NerfactoModel(nn.Module):
         camera_rot_ids: Optional[torch.Tensor] = None,
         rotation_radius: float = 0.6,
     ) -> dict[str, Any]:
-        """rays (n, ...) -> {'rgb'} or {'rgb', 'accumulation', 'depth'}.
-        Deterministic (bin-centre) sampling; differentiable end to end.
+        """rays (n, ...) -> {'rgb'} or {'rgb', 'accumulation', 'depth'};
+        differentiable end to end.
+
+        train=True adds 'weights_list' (each proposal level's weights, then
+        the field's), 'spacing_bins_list' (each level's spacing edges
+        (n, S_i + 1)) and 'ray_samples' (the field's samples). With a
+        `generator` (the reference's key) the training forward samples
+        stratified bins and a random background where the background colour
+        is 'random'; without one, and always when train=False, the bins are
+        the deterministic bin centres. proposal_anneal is the exponent of
+        the proposal weights that steer the resampling.
 
         rotater + camera_rot_ids (num_cameras,) enable the turntable: sample
         positions inside `rotation_radius` of the rotater's centre are
         inverse-rotated into the canonical object frame by the rotation id
         of the ray's camera."""
-        if train:
-            raise NotImplementedError(
-                "training outputs are not ported yet (ROADMAP.md, Queue 1 item 3)"
-            )
+        generator = generator if train else None
         if self.optimize_camera_poses and ray_bundle.camera_indices is not None:
             d6 = self.camera_opt_deltas[ray_bundle.camera_indices[..., 0]]
             rot = exp_so3(d6[..., :3])
@@ -158,11 +167,13 @@ class NerfactoModel(nn.Module):
                 return net(pos, disable_aabb=disable_aabb, disable_aabb_on=disable_aabb_on)
             return fn
 
-        ray_samples, _, _ = proposal_sample(
+        ray_samples, weights_list, samples_list = proposal_sample(
             ray_bundle,
             [make_density_fn(net) for net in self.proposal_networks],
             list(self.num_proposal_samples),
             self.num_nerf_samples,
+            generator=generator,
+            proposal_weights_anneal=proposal_anneal,
             single_jitter=self.single_jitter,
         )
         positions = ray_samples.frustums.get_positions()
@@ -179,11 +190,11 @@ class NerfactoModel(nn.Module):
         weights = ray_samples.get_weights(density)
         rgb = rendering.composite_rgb(
             rgb_samples, weights, background_color=self.background_color,
-            hdr=self.hdr, is_training=False,
+            hdr=self.hdr, is_training=train, generator=generator,
         )
         if hdr_radiance_only:
             return {"rgb": rgb}
-        return {
+        outputs = {
             "rgb": rgb,
             "accumulation": rendering.composite_accumulation(weights),
             "depth": rendering.composite_depth(
@@ -191,6 +202,14 @@ class NerfactoModel(nn.Module):
                 method=self.depth_method,
             ),
         }
+        if train:
+            outputs["weights_list"] = weights_list + [weights]
+            outputs["spacing_bins_list"] = [
+                torch.cat([s.spacing_starts, s.spacing_ends[..., -1:]], dim=-1)
+                for s in samples_list + [ray_samples]
+            ]
+            outputs["ray_samples"] = ray_samples
+        return outputs
 
     def point_lights(
         self,

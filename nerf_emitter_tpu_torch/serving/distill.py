@@ -48,12 +48,14 @@ class EmitterLightField(MLP):
     """Student MLP over (canonical exit point, direction, appearance
     embedding) -> raw log-radiance (3,). Layers `hidden_0` ..
     `hidden_{depth-1}` and `out`, the flax module's names, so the bridge
-    maps them."""
+    maps them; initial weights from `generator` where one is given."""
 
     def __init__(self, hidden: int = 256, depth: int = 6, pos_freqs: int = 6, dir_freqs: int = 4,
-                 pos_center=(0.0, 0.0, 0.0), pos_scale: float = 1.0, emb_dim: int = 0, device=None):
+                 pos_center=(0.0, 0.0, 0.0), pos_scale: float = 1.0, emb_dim: int = 0, device=None,
+                 generator: torch.Generator | None = None):
         in_dim = 3 * (2 * pos_freqs + 1) + 3 * (2 * dir_freqs + 1) + emb_dim
-        super().__init__(in_dim, 3, num_layers=depth + 1, layer_width=hidden, device=device)
+        super().__init__(in_dim, 3, num_layers=depth + 1, layer_width=hidden, device=device,
+                         generator=generator)
         self.pos_freqs, self.dir_freqs = pos_freqs, dir_freqs
         self.register_buffer("pos_center", torch.tensor(pos_center, dtype=torch.float32, device=device))
         self.pos_scale = float(pos_scale)
@@ -185,8 +187,8 @@ def distill_emitter(
     `torch.no_grad()`. Query origins are uniform over the object box in
     unit coordinates, directions uniform on the sphere, and with `guiding`
     (a `VMFMixture`) a `config.guided_frac` share of them from the
-    mixture. `generator` draws everything and must live on `device`
-    (None: CUDA), where the fit runs.
+    mixture. `generator` draws everything, the student's initial weights
+    too, and must live on `device` (None: CUDA), where the fit runs.
 
     Returns (student, fidelity, losses): the student frozen
     (requires_grad off); fidelity holds the held-out
@@ -201,7 +203,7 @@ def distill_emitter(
     emb_dim = _appearance_emb(nerf, 0, 1, dev).shape[1]
     student = EmitterLightField(
         hidden=config.hidden, depth=config.depth, pos_center=tuple(float(c) for c in center),
-        pos_scale=max(half_diag * 1.5, 1e-3), emb_dim=emb_dim, device=dev,
+        pos_scale=max(half_diag * 1.5, 1e-3), emb_dim=emb_dim, device=dev, generator=generator,
     )
     b = config.batch
 

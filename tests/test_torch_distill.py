@@ -189,11 +189,18 @@ def _analytic_teacher_fn_of(nerf, camera_index=None, rot_id=None):
 def test_distill_fits_an_analytic_teacher():
     """A CPU-sized fit (800 steps, batch 256, 3x64, as the JAX test) of the analytic teacher
     converges: the loss falls tenfold and the held-out errors are below
-    tests/test_distill.py's bars (relRMS 0.3, log RMSE 0.2)."""
+    tests/test_distill.py's bars (relRMS 0.3, log RMSE 0.2).
+
+    The fit is a function of its generator alone (the student's initial
+    weights come from it too, not from torch's global generator, which
+    earlier tests in the same worker advance). Across initial weights the
+    fit's log RMSE spans 0.155-0.193, and 2 held-out batches of 256 rays
+    estimate it to +-0.006 (one std), so the fidelity is held on 8
+    (measured at seed 0: relRMS 0.149, log RMSE 0.157)."""
     student, fidelity, losses = td.distill_emitter(
         torch.Generator().manual_seed(0), {}, _analytic_teacher_fn_of, scene_scale=1.0,
         object_aabb=OBJECT_BOX, num_cameras=1,
-        config=td.DistillConfig(steps=800, batch=256, hidden=64, depth=3, holdout_batches=2),
+        config=td.DistillConfig(steps=800, batch=256, hidden=64, depth=3, holdout_batches=8),
         device="cpu",
     )
     assert float(losses[-20:].mean()) < 0.1 * float(losses[:5].mean()), (losses[:5], losses[-20:])
