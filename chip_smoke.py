@@ -16,6 +16,10 @@ their own shapes, then the takeover's emitter as sdf-nerfacto ships it: K5
 at the gated and an overridden sample schedule, the `hash` model at
 bench.py's sizes, the turntable, the vMF guiding build, the distillation of
 the light-field cache with K5 as its teacher, and the distilled path; then
+the SDF renderer (one view on the card against the CPU, and lit by K5
+against the model forward), takeover steps at sdf-nerfacto's width lit
+by the distilled cache (64^2, 128^2 through the first upsample, 256^2 on
+253^3) and one lit by K5, and the JAX suite's shape-recovery run; then
 NeRF pretraining as sdf-nerfacto runs it (the `freq` model at full width,
 2^14 rays a batch, its losses, schedule and per-group Adam) on a synthetic
 scene of 64 views at 256^2, with a held-out view rendered before and after,
@@ -56,6 +60,8 @@ GUIDE_CAMERAS, GUIDE_RES = 64, 256  # the light probes' ring: 64 x (256/4)^2 = 2
 TRAIN_VIEWS, TRAIN_RES = 64, 256  # the pretraining scene: 64 x 256^2 HDR pixels, ~50 MB on the card
 TRAIN_RAYS = 1 << 14  # sdf-nerfacto's rays per batch
 TRAIN_STEPS = 100
+RENDER_RES, RENDER_SPP = 64, 4  # the render phase's view
+TAKEOVER_RECIPE = "diffuse-12-relativel1-hqq"
 # the port's kernels' entry functions (csrc/*.cu), as the profiler names them
 KERNEL_ENTRIES = ("density_kernel", "field_kernel", "proposal_kernel", "field_composite_kernel",
                   "mega_pipeline_kernel", "field_mlp_kernel", "resample_kernel")
@@ -145,9 +151,10 @@ def emitter_rays(n: int, seed: int, device):
     return x.to(device), d.to(device)
 
 
-def ring_cameras(count: int, res: int, device):
-    """`count` perspective cameras (90-degree field of view, res^2 pixels)
-    on a ring of radius 1.2 at height 0.3, looking at the origin."""
+def ring_cameras(count: int, res: int, device, focal: float | None = None):
+    """`count` perspective cameras (res^2 pixels, focal length res / 2 (a
+    90-degree field of view) unless given) on a ring of radius 1.2 at
+    height 0.3, looking at the origin."""
     from nerf_emitter_tpu_torch.cameras.cameras import Cameras
 
     a = torch.arange(count, dtype=torch.float32) * (2.0 * math.pi / count)
@@ -157,9 +164,10 @@ def ring_cameras(count: int, res: int, device):
     r = r / r.norm(dim=-1, keepdim=True)
     u = torch.linalg.cross(r, f, dim=-1)
     c2w = torch.stack([r, u, -f, o], dim=-1)
-    focal = torch.full((count,), res / 2.0)
-    return Cameras(camera_to_worlds=c2w.to(device), fx=focal.to(device), fy=focal.to(device),
-                   cx=focal.to(device), cy=focal.to(device), width=res, height=res)
+    f = torch.full((count,), res / 2.0 if focal is None else focal)
+    c = torch.full((count,), res / 2.0)
+    return Cameras(camera_to_worlds=c2w.to(device), fx=f.to(device), fy=f.to(device),
+                   cx=c.to(device), cy=c.to(device), width=res, height=res)
 
 
 def frozen_brightness_difference(model, rays, box, h: float) -> torch.Tensor:
@@ -273,6 +281,345 @@ def pretrain(dev, seed: int, views: int = TRAIN_VIEWS, res: int = TRAIN_RES, ray
               "eval_psnr_rose": eval_end["psnr"] > eval_start["psnr"],
               "no_port_kernel_in_training": not train_launches}
     return model, rec, checks
+
+
+
+def takeover_render_config():
+    """The takeover's render settings as sdf-nerfacto ships them
+    (pipelines/nerf_emitter.py:241-281): one-sample MIS, the soft
+    silhouette, no secondary warp; the default march."""
+    from nerf_emitter_tpu_torch.renderer.integrator import RenderConfig
+
+    return RenderConfig(mis_mode="one_sample", reparam="soft", warp_secondary=False)
+
+
+def render_check(dev, model, vmf, seed: int, res: int = RENDER_RES, spp: int = RENDER_SPP, grid: int = 64):
+    """One view (camera 0 of an 8-camera ring, a 53-degree field of view)
+    of composite_sdf_grid(grid)
+    with albedo 0.7 at res^2, spp samples in one slice: under an envmap on
+    `dev` and on the CPU from the same draws (rgb, hit, alpha, depth; at
+    most 0.5% of the rays' hits may differ, the rest held: depth within
+    2e-3, the rest within rtol 1e-2 / atol 1e-3), with the march's CUDA
+    graph against the eager march on the card (bit for bit); then lit by
+    the emitter through K5 and through the model's plain forward at far =
+    4, proposed by the vMF mixture (rtol 3e-2, atol 1e-3). Returns (record,
+    checks, K5-lit launches)."""
+    from nerf_emitter_tpu_torch import kernels
+    from nerf_emitter_tpu_torch.pipelines.nerf_emitter import make_nerf_emitter_fn
+    from nerf_emitter_tpu_torch.renderer import sphere_trace as st
+    from nerf_emitter_tpu_torch.renderer.emitters import EnvmapEmitter
+    from nerf_emitter_tpu_torch.renderer.grid3d import composite_sdf_grid
+    from nerf_emitter_tpu_torch.renderer.integrator import draw_direct, render_spp
+    from nerf_emitter_tpu_torch.renderer.scene import SdfScene
+    from nerf_emitter_tpu_torch.renderer.sensors import camera_rays_in_render_space
+
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(seed + 8)
+    h, w = 16, 32
+    rows = torch.linspace(0.3, 1.7, h)[:, None, None]
+    env_img = (0.5 + torch.rand((h, w, 3), generator=g)) * rows
+    cams = ring_cameras(8, res, cpu, focal=res)
+    o, d = camera_rays_in_render_space(cams, 0, res, res, 1.0, g)
+    tex = torch.full((32, 32, 32, 3), 0.7)
+
+    def scene_on(device, **kw):
+        return SdfScene(sdf=composite_sdf_grid(grid).to(device), albedo=tex.to(device),
+                        roughness=torch.full((32, 32, 32, 1), 0.5, device=device), **kw)
+
+    rc = takeover_render_config()
+    cpu_scene = scene_on(cpu, envmap=EnvmapEmitter.create(env_img))
+    draws = draw_direct(cpu_scene, o.shape[0], g, lead=(spp,))
+    with torch.no_grad():
+        ref = render_spp(cpu_scene, o, d, spp, draws=draws, config=rc, spp_per_batch=spp)
+        got = render_spp(scene_on(dev, envmap=EnvmapEmitter.create(env_img.to(dev))), o.to(dev), d.to(dev), spp,
+                         draws=draws.map(lambda t: t.to(dev)), config=rc, spp_per_batch=spp)
+    same = got["hit"].cpu() == ref["hit"]
+    checks = {"hit_disagreement_share": dict(share=float((~same).float().mean()), bar=0.005,
+                                             within=float((~same).float().mean()) <= 0.005)}
+    for k, (rtol, atol) in (("rgb", (1e-2, 1e-3)), ("alpha", (1e-2, 1e-3)), ("depth", (0.0, 2e-3))):
+        a, b = got[k].cpu()[same], ref[k][same]
+        checks[k] = close(a, b, rtol=rtol, atol=atol)
+    if dev.type == "cuda":
+        sdf = cpu_scene.sdf.to(dev)
+        graphed = st._march(sdf, o.to(dev), d.to(dev), rc.trace)
+        eager = st._march_eager(sdf, o.to(dev), d.to(dev), rc.trace)
+        checks["march_graph_vs_eager"] = dict(bitwise=all(torch.equal(a, b) for a, b in zip(graphed, eager)),
+                                              max_abs_err=0.0)
+        checks["march_graph_vs_eager"]["within"] = checks["march_graph_vs_eager"]["bitwise"]
+    # the emitter: K5 against the model forward, the vMF mixture proposing
+    lit = scene_on(dev, guiding=vmf)
+    lit_draws = draw_direct(lit, o.shape[0], torch.Generator(device=dev).manual_seed(seed + 9), lead=(spp,))
+    outs, launches = {}, {}
+    for tag, fused in (("k5", True), ("model_forward", False)):
+        fn = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, far=4.0, use_fused=fused)(camera_index=0)
+        kernels.reset_launches()
+        with torch.no_grad():
+            outs[tag] = render_spp(lit, o.to(dev), d.to(dev), spp, draws=lit_draws, emitter_fn=fn, config=rc,
+                                   spp_per_batch=spp)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches[tag] = dict(kernels.launches)
+    checks["k5_vs_model_forward_far4"] = close(outs["k5"]["rgb"], outs["model_forward"]["rgb"], rtol=3e-2, atol=1e-3)
+    rec = dict(res=res, spp=spp, grid=grid, rays=o.shape[0], hits=int(ref["hit"].sum()),
+               launches=launches, rgb_mean=float(got["rgb"].mean()), lit_rgb_mean=float(outs["k5"]["rgb"].mean()))
+    return rec, checks, launches["k5"]
+
+
+class GradProbe:
+    """An optimiser whose state also keeps the last gradients it was given."""
+
+    def __init__(self, tx):
+        self.tx = tx
+
+    def init(self, scene):
+        return (self.tx.init(scene), None)
+
+    def update(self, grads, state):
+        updates, inner = self.tx.update(grads, state[0])
+        return updates, (inner, grads)
+
+
+def takeover(dev, seed: int, model, student, vmf, *, gt_res: int = 256, sizes=(64, 128, 256), steps=(4, 4, 1),
+             cameras: int = 8, batch: int = 4, spp: int = 32, spp_attached: int = 16, spp_per_batch: int = 8,
+             gt_spp: int = 8, trace: bool = True):
+    """The takeover as sdf-nerfacto runs it: the recipe
+    diffuse-12-relativel1-hqq (configs/methods.py:63: 64^3 SDF from a
+    sphere of radius 0.25, 32^3 textures, redistancing every 5 steps,
+    Sobolev lambda 2 with uniform Adam, upsamples at steps 64 and 128 with
+    the lr x0.25), the pipeline's defaults (pipelines/nerf_emitter.py:
+    241-281,734-750: batch 4, spp 32, spp_attached 16, spp_per_batch 8, the
+    render settings of takeover_render_config), lit by the distilled
+    student with the vMF mixture proposing. The GT: composite_sdf_grid(64)
+    with albedo 0.7 rendered under the same student on a ring of `cameras`
+    cameras (a 53-degree field of view) at gt_res^2 (gt_spp samples),
+    resized by the step to the render size. Steps: (a) steps[0] from step 0 at sizes[0]^2, (b) steps[1]
+    numbered 63.. at sizes[1]^2 (post_step_host upsamples to 127^3 at step
+    64 and redistances at 65), (c) steps[2] at sizes[2]^2 on the 253^3 grid
+    (4 gradient bands under the budget rule at 256^2). Then one step at
+    sizes[0]^2 lit by K5 (far = 4), its gradient held against the same
+    step's lit by the model's plain forward: the sdf gradient at the
+    backward phase's bars (relative L2 0.35, cosine 0.9: it carries the
+    emitter's gradient with respect to the shading points, which the two
+    samplers place differently), the albedo gradient (the emitter's values
+    alone) at 0.1 and 0.99. Returns (record, checks, K5 step's launches)."""
+    from nerf_emitter_tpu_torch import kernels
+    from nerf_emitter_tpu_torch.pipelines.nerf_emitter import make_nerf_emitter_fn
+    from nerf_emitter_tpu_torch.pipelines.sdf_optimizer import (SdfOptState, TakeoverConfig, build_sdf_optimizer,
+                                                                init_mean_params, make_sdf_train_step, post_step_host)
+    from nerf_emitter_tpu_torch.renderer.grid3d import composite_sdf_grid
+    from nerf_emitter_tpu_torch.renderer.integrator import render_spp
+    from nerf_emitter_tpu_torch.renderer.optimize import get_opt_config
+    from nerf_emitter_tpu_torch.renderer.scene import SdfScene
+    from nerf_emitter_tpu_torch.renderer.sensors import camera_rays_in_render_space
+    from nerf_emitter_tpu_torch.renderer.sphere_trace import clear_march_graphs
+    from nerf_emitter_tpu_torch.scripts.profiling import device_trace
+    from nerf_emitter_tpu_torch.serving.distill import make_student_emitter_fn_of
+
+    cuda = dev.type == "cuda"
+    cfg = get_opt_config(TAKEOVER_RECIPE)
+    rc = takeover_render_config()
+    cams = ring_cameras(cameras, gt_res, dev, focal=gt_res)
+    student_of = make_student_emitter_fn_of(student, scene_scale=1.0, object_aabb=OBJECT_BOX)
+
+    def student_for_camera(c, r):
+        return student_of(model, camera_index=c, rot_id=r)
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    t0 = time.perf_counter()
+    gt_scene = SdfScene(sdf=composite_sdf_grid(cfg.init_res, device=dev),
+                        albedo=torch.full((cfg.tex_res,) * 3 + (3,), 0.7, device=dev),
+                        roughness=torch.full((cfg.tex_res,) * 3 + (1,), 0.5, device=dev), guiding=vmf)
+    gts, masks = [], []
+    with torch.no_grad():
+        for i in range(cameras):
+            o, d = camera_rays_in_render_space(cams, i, gt_res, gt_res, 1.0, gen)
+            out = render_spp(gt_scene, o, d, gt_spp, gen, emitter_fn=student_for_camera(i, None), config=rc,
+                             spp_per_batch=gt_spp)
+            gts.append(out["rgb"].reshape(gt_res, gt_res, 3))
+            masks.append(out["hit"].reshape(gt_res, gt_res, 1).float())
+    gts, masks = torch.stack(gts), torch.stack(masks)
+    if cuda:
+        torch.cuda.synchronize()
+    gt_s = time.perf_counter() - t0
+
+    lr_scale = {}
+
+    def make_step(size, tx, **kw):
+        tk = TakeoverConfig(spp=spp, spp_per_batch=spp_per_batch, image_height=size, image_width=size,
+                            scene_scale=1.0, spp_attached=spp_attached)
+        return make_sdf_train_step(cfg, tk, tx, render_config=rc, **kw)
+
+    scene0 = SdfScene.create(sdf_res=cfg.init_res, tex_res=cfg.tex_res, bsdf_type=cfg.bsdf_type, init_radius=0.25,
+                             device=dev).replace(guiding=vmf)
+    tx = build_sdf_optimizer(cfg)
+    state = SdfOptState(step=0, scene=scene0, opt_state=tx.init(scene0), mean_params=init_mean_params(scene0))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    metrics, stages = [], {}
+
+    def run(tag, size, n):
+        nonlocal state, tx
+        step_fn = make_step(size, tx, emitter_for_camera=student_for_camera)
+        ms, first = [], None
+        for _ in range(n):
+            cam = torch.randperm(cameras, generator=gen, device=dev)[:batch]
+            if cuda:
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step_fn(state, cams, cam, gts[cam], masks[cam], gen)
+            shape = state.scene.sdf.shape
+            state = post_step_host(state, cfg, tx)
+            if state.scene.sdf.shape != shape:
+                # the pipeline's volume-upsample lr decay: a new optimiser
+                # and a step built around it
+                for v in cfg.variables:
+                    if v.lr_decay_at_up != 1.0:
+                        lr_scale[v.name] = lr_scale.get(v.name, 1.0) * v.lr_decay_at_up
+                tx = build_sdf_optimizer(cfg, lr_scale)
+                state = state.replace(opt_state=tx.init(state.scene))
+                step_fn = make_step(size, tx, emitter_for_camera=student_for_camera)
+            if cuda:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()} | dict(step=state.step - 1, size=size,
+                                                                        grid=int(state.scene.sdf.shape[0])))
+        stages[tag] = dict(size=size, steps=[metrics[-n]["step"], metrics[-1]["step"]],
+                           grid_after=int(state.scene.sdf.shape[0]), ms_per_step=ms,
+                           ms_per_step_after_first=sum(ms[1:]) / max(1, len(ms) - 1) if len(ms) > 1 else None,
+                           bands=step_fn.n_grad_bands, detached_chunks=step_fn.chunks)
+        return step_fn
+
+    step_a = run("a", sizes[0], steps[0])
+    step_trace = None
+    if trace:
+        cam = torch.arange(batch, device=dev)
+        step_trace = device_trace(lambda: step_a(state, cams, cam, gts[cam], masks[cam], gen), calls=1, top=8)
+    state = state.replace(step=63)
+    run("b", sizes[1], steps[1])
+    state = post_step_host(state.replace(step=128), cfg, tx)
+    for v in cfg.variables:
+        if v.lr_decay_at_up != 1.0:
+            lr_scale[v.name] = lr_scale.get(v.name, 1.0) * v.lr_decay_at_up
+    tx = build_sdf_optimizer(cfg, lr_scale)
+    state = state.replace(opt_state=tx.init(state.scene))
+    run("c", sizes[2], steps[2])
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    del state
+    clear_march_graphs()
+
+    # the K5-lit step against the same step lit by the model's forward, on
+    # the same draws, from the sphere init
+    probe_grads, k5_launches, k5_ms, comparison_peak = {}, None, None, {}
+    draws = None
+    for tag, fused in (("k5", True), ("model_forward", False)):
+        fn_of = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, far=4.0, detach_nerf=True, use_fused=fused)
+        probe = GradProbe(build_sdf_optimizer(cfg))
+        step_fn = make_step(sizes[0], probe, emitter_for_camera=lambda c, r, f=fn_of: f(camera_index=c, rot_id=r))
+        s0 = SdfOptState(step=0, scene=scene0, opt_state=probe.init(scene0))
+        cam = torch.arange(batch, device=dev)
+        if draws is None:
+            draws = step_fn.draw(scene0, batch, gen)
+        kernels.reset_launches()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        new, m = step_fn(s0, cams, cam, gts[cam], masks[cam], draws=draws)
+        if cuda:
+            torch.cuda.synchronize()
+            comparison_peak[tag] = torch.cuda.max_memory_allocated() / 2**30
+        if tag == "k5":
+            k5_ms, k5_launches = (time.perf_counter() - t1) * 1e3, dict(kernels.launches)
+            k5_metrics = {k: float(v) for k, v in m.items()}
+        probe_grads[tag] = new.opt_state[1]
+        del new
+        clear_march_graphs()
+    grad_checks = {f"{k}_grad_k5_vs_model_forward_far4": vectors_close(probe_grads["k5"][k],
+                                                                          probe_grads["model_forward"][k],
+                                                                          rel_l2=bar[0], cos=bar[1])
+                   for k, bar in (("sdf", (0.35, 0.9)), ("albedo", (0.1, 0.99)))}
+    finite = all(math.isfinite(v) for m in metrics + [k5_metrics] for v in m.values())
+    checks = dict(grad_checks, losses_and_gnorms_finite=finite)
+    rec = dict(recipe=TAKEOVER_RECIPE, cameras=cameras, gt_res=gt_res, gt_spp=gt_spp, gt_s=gt_s, batch=batch,
+               spp=spp, spp_attached=spp_attached, spp_per_batch=spp_per_batch, stages=stages,
+               peak_mem_gb=peak, peak_mem_gb_k5_and_forward_lit_steps=comparison_peak, metrics=metrics,
+               trace_one_step_a=step_trace,
+               k5_step=dict(size=sizes[0], ms=k5_ms, launches=k5_launches, metrics=k5_metrics),
+               cut=f"steps {steps} of 320 at sizes {list(sizes)}: (a) from step 0, (b) from step 63, (c) at step 128")
+    return rec, checks, k5_launches
+
+
+def recovery(dev, seed: int, steps: int = 40):
+    """The JAX suite's shape recovery (tests/test_sdf_optimization.py:95-152)
+    on `dev`: a box (half extent 0.22) from a sphere (radius 0.25), 33^3,
+    4 cameras of 32^2, spp 4, soft reparam, envmap 1.5, 40 steps of the
+    exact-mode step with validate_params after each. Bars: the mean view
+    loss of the last 5 steps below 0.7x the first, the last mask loss
+    below 0.3x the first."""
+    from nerf_emitter_tpu_torch.cameras.cameras import Cameras
+    from nerf_emitter_tpu_torch.pipelines.sdf_optimizer import (SdfOptState, TakeoverConfig, build_sdf_optimizer,
+                                                                make_sdf_train_step)
+    from nerf_emitter_tpu_torch.renderer.emitters import EnvmapEmitter
+    from nerf_emitter_tpu_torch.renderer.grid3d import box_sdf_grid
+    from nerf_emitter_tpu_torch.renderer.integrator import RenderConfig, render_spp
+    from nerf_emitter_tpu_torch.renderer.optimize import SdfOptConfig, VariableSpec, validate_params
+    from nerf_emitter_tpu_torch.renderer.scene import SdfScene
+    from nerf_emitter_tpu_torch.renderer.sensors import camera_rays_in_render_space
+    from nerf_emitter_tpu_torch.renderer.sphere_trace import SphereTraceConfig, clear_march_graphs
+
+    n, res = 4, 32
+    c2ws = []
+    for i in range(n):
+        th = 2 * math.pi * i / n
+        eye = 1.6 * torch.tensor([math.cos(th), 0.35, math.sin(th)])
+        fwd = -eye / eye.norm()
+        right = torch.linalg.cross(fwd, torch.tensor([0.0, 1.0, 0.0]))
+        right = right / right.norm()
+        c2ws.append(torch.stack([right, torch.linalg.cross(right, fwd), -fwd, eye], dim=1))
+    f = torch.full((n,), 40.0, device=dev)
+    cams = Cameras(camera_to_worlds=torch.stack(c2ws).to(dev), fx=f, fy=f, cx=torch.full((n,), res / 2, device=dev),
+                   cy=torch.full((n,), res / 2, device=dev), width=res, height=res)
+    rc = RenderConfig(trace=SphereTraceConfig(max_steps=48, t_max=3.0), reparam="soft")
+    env = EnvmapEmitter.create(torch.ones((8, 16, 3), device=dev) * 1.5)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    gt_scene = SdfScene.create(sdf_res=33, tex_res=4, envmap=env, init_albedo=0.7, device=dev).replace(
+        sdf=box_sdf_grid(33, half_extent=0.22, device=dev))
+    gts, masks = [], []
+    with torch.no_grad():
+        for i in range(n):
+            o, d = camera_rays_in_render_space(cams, i, res, res, 1.0)
+            out = render_spp(gt_scene, o, d, 8, gen, config=rc)
+            gts.append(out["rgb"].reshape(res, res, 3))
+            masks.append(out["hit"].reshape(res, res, 1).float())
+    gts, masks = torch.stack(gts), torch.stack(masks)
+    cfg = SdfOptConfig(name="test", bsdf_type=0, loss="relative_l1",
+                       variables=(VariableSpec("sdf", lr=3e-3, redistance_freq=10),
+                                  VariableSpec("albedo", lr=1e-2, clamp=(0.0, 1.0)),
+                                  VariableSpec("roughness", lr=0.0, clamp=(0.02, 1.0))),
+                       render_upsample_iter=(), curvature_mult=0.002, curvature_epsilon=0.04)
+    tk = TakeoverConfig(spp=4, image_height=res, image_width=res, scene_scale=1.0, laplacian_mult=1e-3)
+    scene0 = SdfScene.create(sdf_res=33, tex_res=4, envmap=env, init_albedo=0.5, init_radius=0.25, device=dev)
+    tx = build_sdf_optimizer(cfg)
+    state = SdfOptState(step=0, scene=scene0, opt_state=tx.init(scene0))
+    step_fn = make_sdf_train_step(cfg, tk, tx, render_config=rc)
+    cam = torch.arange(n, device=dev)
+    view, mask = [], []
+    t0 = time.perf_counter()
+    for it in range(steps):
+        state, m = step_fn(state, cams, cam, gts, masks, gen)
+        state = state.replace(scene=validate_params(state.scene, cfg, it))
+        view.append(float(m["view_loss"]))
+        mask.append(float(m["mask_loss"]))
+    seconds = time.perf_counter() - t0
+    clear_march_graphs()
+    last5 = sum(view[-5:]) / 5
+    checks = {"view_last5_below_0.7x_first": last5 < 0.7 * view[0],
+              "mask_last_below_0.3x_first": mask[-1] < 0.3 * mask[0],
+              "losses_finite": all(math.isfinite(v) for v in view + mask)}
+    rec = dict(steps=steps, seconds=seconds, ms_per_step=seconds * 1e3 / steps, view_first=view[0],
+               view_last5_mean=last5, view_ratio=last5 / view[0], mask_first=mask[0], mask_last=mask[-1],
+               mask_ratio=mask[-1] / mask[0], view=view, mask=mask)
+    return rec, checks
 
 
 def main() -> int:
@@ -1216,8 +1563,43 @@ def main() -> int:
               launches=student_launches, trace=s_trace))
     if student_launches or s_out.shape != (n, 3) or not bool(torch.isfinite(s_out).all()):
         raise AssertionError(f"the student's answer is not finite (n, 3) from plain PyTorch: {student_launches}")
-    del student, s_fn, t_fn, s_out, t_out
+    del s_fn, t_fn, s_out, t_out
     torch.cuda.empty_cache()
+
+    # ---- phase 12b: the SDF renderer (`render_check`): one view at 64^2,
+    # spp 4, under an envmap on the card against the CPU from the same
+    # draws, the march's CUDA graph against the eager march, then lit by
+    # K5 against the model's plain forward at far = 4.
+    t_phase = time.perf_counter()
+    render_rec, render_checks, render_launches = render_check(dev, model, vmf, args.seed)
+    emit(dict(phase="render", **render_rec, checks=render_checks, phase_s=time.perf_counter() - t_phase))
+    bad = [k for k, c in render_checks.items() if not c["within"]]
+    if bad:
+        raise AssertionError(f"render: failed checks {bad}: {render_checks}")
+    if render_launches.get("mega_pipeline", 0) < 1:
+        raise AssertionError(f"the K5-lit render did not run K5: {render_launches}")
+
+    # ---- phase 12c: the takeover (`takeover`) at sdf-nerfacto's width, lit
+    # by the distilled student with the vMF mixture proposing: steps at
+    # 64^2, 128^2 (through the 127^3 upsample) and 256^2 (253^3, 4 gradient
+    # bands), then one K5-lit step held against the model forward's.
+    t_phase = time.perf_counter()
+    take_rec, take_checks, take_launches = takeover(dev, args.seed, model, student, vmf)
+    emit(dict(phase="takeover", **take_rec, checks=take_checks, phase_s=time.perf_counter() - t_phase))
+    bad = [k for k, c in take_checks.items() if not (c["within"] if isinstance(c, dict) else c)]
+    if bad:
+        raise AssertionError(f"takeover: failed checks {bad}: {take_checks}")
+    if take_launches.get("mega_pipeline", 0) < 1 or take_launches.get("fused_density", 0) < 1:
+        raise AssertionError(f"the K5-lit takeover step did not run K5 and K1: {take_launches}")
+    del student
+    torch.cuda.empty_cache()
+
+    # ---- phase 12d: the JAX suite's shape recovery (`recovery`) on the card
+    t_phase = time.perf_counter()
+    rec_rec, rec_checks = recovery(dev, args.seed)
+    emit(dict(phase="recovery", **rec_rec, checks=rec_checks, phase_s=time.perf_counter() - t_phase))
+    if not all(rec_checks.values()):
+        raise AssertionError(f"recovery: {rec_checks}")
 
     # ---- phase 13: NeRF pretraining (`pretrain`: sdf-nerfacto's model,
     # batch, losses and schedule, 100 steps; the step is plain PyTorch and
@@ -1270,9 +1652,10 @@ def main() -> int:
     # the profiling scripts (phase 6). Each reports its launches in the
     # runs of its own paths.
     # `launches` sums a kernel's paths; `launches_by_path` splits them.
-    path_of = {"mega_pipeline": ["query", "schedules", "turntable", "distill", "train"],
+    path_of = {"mega_pipeline": ["query", "schedules", "turntable", "distill", "render", "takeover", "train"],
                "proposal": ["two_kernel_query", "train"], "field_mlp": ["field_mlp"],
-               "field_composite": ["two_kernel_query", "train"], "fused_density": ["backward", "staged_query"],
+               "field_composite": ["two_kernel_query", "train"],
+               "fused_density": ["backward", "staged_query", "takeover"],
                "fused_field": ["staged_query"], "profile_query.kernel_a": ["profile_query"],
                "profile_query.kernel_b": ["profile_query"]}
     path_of |= {f"proposal_variant[{m}]": ["profile_kernel_a"] for m in mq.PROPOSAL_MODES}
@@ -1280,7 +1663,8 @@ def main() -> int:
     counted_as = {"profile_query.kernel_a": "proposal", "profile_query.kernel_b": "field_composite"}
     counts = {"query": fwd_launches, "two_kernel_query": two_launches, "backward": bwd_launches,
               "staged_query": staged_launches, "field_mlp": mlp_launches, "schedules": sched_launches,
-              "turntable": tt_launches, "distill": distill_launches, "train": train_k5 | train_two,
+              "turntable": tt_launches, "distill": distill_launches, "render": render_launches,
+              "takeover": take_launches, "train": train_k5 | train_two,
               **script_launches}
 
     def by_path(name):

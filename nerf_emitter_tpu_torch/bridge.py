@@ -9,7 +9,8 @@ Raw parameters keep their flax names and layout: the hash tables
 `field/hash_table` and `proposal_{0,1}/hash_table` (T, F), and the pose
 deltas `camera_opt_deltas` and `rotation_opt_deltas` (n, 6). The distilled
 student's tree (`hidden_{i}`, `out`) loads into `EmitterLightField` the
-same way.
+same way. `load_sdf_scene` carries an SDF scene's grids, envmap and
+guiding mixture.
 """
 
 from __future__ import annotations
@@ -74,3 +75,28 @@ def load_flax_params(model: nn.Module, tree: Mapping) -> nn.Module:
                 )
             param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
     return model
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+
+
+def load_sdf_scene(scene, device=None):
+    """The port's SdfScene from another package's scene: any object with
+    the attributes sdf, albedo, roughness, envmap (image, row_cdf,
+    cond_cdf, or None), guiding (positions, weights, stds, or None),
+    bsdf_type and hide_emitters, whose arrays numpy can read (the JAX
+    package's SdfScene is one)."""
+    from .renderer.emitters import EnvmapEmitter, VMFMixture
+    from .renderer.scene import SdfScene
+
+    env, guide = scene.envmap, scene.guiding
+    return SdfScene(
+        sdf=_tensor(scene.sdf, device), albedo=_tensor(scene.albedo, device),
+        roughness=_tensor(scene.roughness, device),
+        envmap=None if env is None else EnvmapEmitter(
+            *(_tensor(getattr(env, k), device) for k in ("image", "row_cdf", "cond_cdf"))),
+        guiding=None if guide is None else VMFMixture(
+            *(_tensor(getattr(guide, k), device) for k in ("positions", "weights", "stds"))),
+        bsdf_type=int(scene.bsdf_type), hide_emitters=bool(scene.hide_emitters),
+    )

@@ -4,8 +4,8 @@ of `VMFGuiding` in nerf_emitter_tpu/guiding/path_guiding.py).
 Extract the light point cloud, mean-compensate and threshold it, fit a
 64-component spherical GMM in render space, and load (position, weight,
 std) into a `VMFMixture`; rebuilt every `rebuild_every` takeover steps. The
-envmap strategies (`EnvGuiding`, `EmitterImageGuiding`) come with the
-envmap emitter (ROADMAP.md, Queue 1 item 4).
+envmap strategies (`EnvGuiding`, `EmitterImageGuiding`) are not ported yet
+(ROADMAP.md, Queue 1 item 5).
 """
 
 from __future__ import annotations

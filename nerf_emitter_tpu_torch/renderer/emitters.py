@@ -1,9 +1,12 @@
-"""Emitters (port of nerf_emitter_tpu/renderer/emitters.py): the vMF
-mixture, the path-guiding proposal that importance-samples directions
-toward the NeRF's light clusters. The equirect envmap emitter is a later
-slice (ROADMAP.md, Queue 1 item 4).
+"""Emitters (port of nerf_emitter_tpu/renderer/emitters.py): the
+equirectangular environment map, with 2D-CDF importance sampling, and the
+vMF mixture, the path-guiding proposal that importance-samples directions
+toward the NeRF's light clusters. The NeRF itself is an emitter function
+of the integrator (pipelines/nerf_emitter.make_nerf_emitter_fn).
 
-Directions are in the world frame.
+Directions are in the world frame. The equirect parameterisation is theta
+from the +y pole and phi about y, 0 at -z (cameras.EQUIRECTANGULAR). A
+sampler takes its uniforms from a generator or as given tensors.
 """
 
 from __future__ import annotations
@@ -15,22 +18,98 @@ from typing import Optional
 import torch
 
 from ..utils.math import normalize
+from .bsdf import to_world
 
 
-def _orthonormal_basis(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Branchless orthonormal basis (Duff et al.) for (..., 3) normals."""
-    s = torch.where(n[..., 2] >= 0.0, 1.0, -1.0)
-    a = -1.0 / (s + n[..., 2])
-    b = n[..., 0] * n[..., 1] * a
-    t = torch.stack([1.0 + s * n[..., 0] ** 2 * a, s * b, -s * n[..., 0]], dim=-1)
-    bt = torch.stack([b, s + n[..., 1] ** 2 * a, -n[..., 1]], dim=-1)
-    return t, bt
+def dir_to_equirect(d: torch.Tensor) -> torch.Tensor:
+    """(..., 3) unit directions -> (u, v) in [0, 1]^2 (u ~ phi, v ~ theta)."""
+    theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
+    phi = torch.arctan2(d[..., 0], -d[..., 2])
+    return torch.stack([phi / (2.0 * math.pi) + 0.5, theta / math.pi], dim=-1)
 
 
-def to_world(n: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
-    """Local (..., 3) coordinates in the frame around n -> world."""
-    t, b = _orthonormal_basis(n)
-    return local[..., 0:1] * t + local[..., 1:2] * b + local[..., 2:3] * n
+def equirect_to_dir(uv: torch.Tensor) -> torch.Tensor:
+    phi = (uv[..., 0] - 0.5) * 2.0 * math.pi
+    theta = uv[..., 1] * math.pi
+    sin_t = torch.sin(theta)
+    return torch.stack([sin_t * torch.sin(phi), torch.cos(theta), -sin_t * torch.cos(phi)], dim=-1)
+
+
+@dataclasses.dataclass
+class EnvmapEmitter:
+    """image (H, W, 3) linear radiance, with its sampling tables: row_cdf
+    (H,) over rows (sin-weighted luminance) and cond_cdf (H, W) along each
+    row."""
+
+    image: torch.Tensor
+    row_cdf: torch.Tensor
+    cond_cdf: torch.Tensor
+
+    @staticmethod
+    def create(image: torch.Tensor) -> "EnvmapEmitter":
+        h = image.shape[0]
+        lum = torch.mean(image, dim=-1)
+        theta = (torch.arange(h, dtype=torch.float32, device=image.device) + 0.5) / h * math.pi
+        weights = lum * torch.sin(theta)[:, None] + 1e-9
+        row_w = torch.sum(weights, dim=1)
+        row_cdf = torch.cumsum(row_w, dim=0) / torch.sum(row_w)
+        cond_cdf = torch.cumsum(weights, dim=1) / torch.sum(weights, dim=1, keepdim=True)
+        return EnvmapEmitter(image=image, row_cdf=row_cdf, cond_cdf=cond_cdf)
+
+    def eval(self, d: torch.Tensor) -> torch.Tensor:
+        """Radiance along (..., 3) directions, bilinear in the texels."""
+        h, w = self.image.shape[:2]
+        uv = dir_to_equirect(d)
+        x = uv[..., 0] * w - 0.5
+        y = uv[..., 1] * h - 0.5
+        x0, y0 = torch.floor(x), torch.floor(y)
+        fx, fy = (x - x0)[..., None], (y - y0)[..., None]
+        x0i = torch.remainder(x0.long(), w)
+        x1i = torch.remainder(x0i + 1, w)
+        y0i = torch.clamp(y0.long(), 0, h - 1)
+        y1i = torch.clamp(y0i + 1, 0, h - 1)
+        img = self.image
+        return (img[y0i, x0i] * (1 - fx) * (1 - fy) + img[y0i, x1i] * fx * (1 - fy)
+                + img[y1i, x0i] * (1 - fx) * fy + img[y1i, x1i] * fx * fy)
+
+    def pdf(self, d: torch.Tensor) -> torch.Tensor:
+        """Solid-angle pdf of `sample` at (..., 3) directions."""
+        h, w = self.image.shape[:2]
+        uv = dir_to_equirect(d)
+        xi = torch.clamp((uv[..., 0] * w).long(), 0, w - 1)
+        yi = torch.clamp((uv[..., 1] * h).long(), 0, h - 1)
+        row_pdf = torch.diff(self.row_cdf, prepend=self.row_cdf.new_zeros(1))
+        cond_pdf = torch.diff(self.cond_cdf, dim=1, prepend=self.cond_cdf.new_zeros(h, 1))
+        p_texel = row_pdf[yi] * cond_pdf[yi, xi]
+        sin_t = torch.clamp(torch.sin((yi.float() + 0.5) / h * math.pi), min=1e-6)
+        jac = (2.0 * math.pi / w) * (math.pi / h) * sin_t  # the texel's solid angle
+        return p_texel / jac
+
+    def sample(
+        self,
+        shape: tuple,
+        generator: Optional[torch.Generator] = None,
+        *,
+        uniforms: Optional[tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Importance-sample directions -> (directions (*shape, 3), pdf).
+
+        The draws are (u_row (*shape), u_col (*shape), jitter (*shape, 2)),
+        from `generator` or given. The row is the first whose CDF entry is
+        not below u_row (searchsorted's left side); the column is the count
+        of the row's CDF entries below u_col."""
+        h, w = self.image.shape[:2]
+        if uniforms is None:
+            dev = self.image.device
+            uniforms = (torch.rand(shape, generator=generator, device=dev),
+                        torch.rand(shape, generator=generator, device=dev),
+                        torch.rand((*shape, 2), generator=generator, device=dev))
+        u_row, u_col, jitter = uniforms
+        yi = torch.clamp(torch.searchsorted(self.row_cdf, u_row.contiguous()), 0, h - 1)
+        xi = torch.clamp(torch.sum(self.cond_cdf[yi] < u_col[..., None], dim=-1), 0, w - 1)
+        uv = torch.stack([(xi + jitter[..., 0]) / w, (yi + jitter[..., 1]) / h], dim=-1)
+        d = equirect_to_dir(uv)
+        return d, self.pdf(d)
 
 
 @dataclasses.dataclass
