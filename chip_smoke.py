@@ -23,7 +23,10 @@ by the distilled cache (64^2, 128^2 through the first upsample, 256^2 on
 NeRF pretraining as sdf-nerfacto runs it (the `freq` model at full width,
 2^14 rays a batch, its losses, schedule and per-group Adam) on a synthetic
 scene of 64 views at 256^2, with a held-out view rendered before and after,
-and the trained field served through K5 and K3 + K4. Every phase prints
+and the trained field served through K5 and K3 + K4; then the whole method
+through its train CLI on that scene (pretraining, the TSDF init, the
+guiding, the cache distilled with K5 as its teacher, takeover steps, an
+eval view lit by K5, checkpoints, and a resumed run). Every phase prints
 one JSON line; any failure raises and the script exits non-zero. The last
 line is {"ok": true, "device": {...}}.
 
@@ -620,6 +623,169 @@ def recovery(dev, seed: int, steps: int = 40):
                view_last5_mean=last5, view_ratio=last5 / view[0], mask_first=mask[0], mask_last=mask[-1],
                mask_ratio=mask[-1] / mask[0], view=view, mask=mask)
     return rec, checks
+
+
+def tsdf_fragile(cams, depth, res: int, scene_scale: float, object_aabb, px=1e-3, dist=1e-5):
+    """Voxels that two f32 fusions may fuse differently beyond rounding,
+    found in float64 (tests/test_torch_pipeline.py's `_fragile`): in some
+    view that sees the voxel, the projection within `px` pixels of an image
+    edge, the observed distance within `dist` of -truncation, or bilinear
+    depth taps that straddle the silhouette (a 1e3 miss beside a surface);
+    or the centre within `dist` of the object box's faces."""
+    f64, dev = torch.float64, depth.device
+    c2w = cams.camera_to_worlds.to(f64)
+    h, w = depth.shape[1:3]
+    trunc = 4.0 / res
+    xs = torch.linspace(0.0, 1.0, res, dtype=f64, device=dev)
+    vox = (torch.stack(torch.meshgrid(xs, xs, xs, indexing="ij"), -1).reshape(-1, 3) * 2.0 - 1.0) * scene_scale
+    near = torch.zeros(vox.shape[0], dtype=torch.bool, device=dev)
+    for b in range(c2w.shape[0]):
+        p = (vox - c2w[b, :, 3]) @ c2w[b, :, :3]
+        z = -p[:, 2]
+        zc = z.clamp(min=1e-6)
+        u = float(cams.fx[b]) * p[:, 0] / zc + float(cams.cx[b])
+        v = -float(cams.fy[b]) * p[:, 1] / zc + float(cams.cy[b])
+        ui, vi = u.clamp(0, w - 1), v.clamp(0, h - 1)
+        u0, v0 = ui.floor().long(), vi.floor().long()
+        u1, v1 = (u0 + 1).clamp(max=w - 1), (v0 + 1).clamp(max=h - 1)
+        fu, fv = ui - u0, vi - v0
+        dm = depth[b, ..., 0].to(f64)
+        taps = torch.stack([dm[v0, u0], dm[v0, u1], dm[v1, u0], dm[v1, u1]])
+        dd = taps[0] * (1 - fu) * (1 - fv) + taps[1] * fu * (1 - fv) + taps[2] * (1 - fu) * fv + taps[3] * fu * fv
+        sdf_obs = dd * zc / torch.linalg.vector_norm(p, dim=-1).clamp(min=1e-6) - z
+        edge = torch.stack([u.abs(), (u - (w - 1)).abs(), v.abs(), (v - (h - 1)).abs()]).amin(0) < px
+        straddle = (taps.amax(0) >= 1e3) & (taps.amin(0) < 1e3) & (sdf_obs > -trunc)
+        near |= (z > 0) & (edge | straddle | ((sdf_obs + trunc).abs() < dist))
+    box = torch.as_tensor(object_aabb, dtype=f64, device=dev)
+    near |= (torch.minimum((vox - box[0]).abs(), (vox - box[1]).abs()) < dist).any(-1)
+    return near.reshape(res, res, res, 1)
+
+
+def pipeline(dev, seed: int, *, views: int = TRAIN_VIEWS, res: int = TRAIN_RES, takeover: int = 100,
+             steps: int = 112, resume_to: int = 116, distill: int = 500, eval_every: int = 105,
+             save_every: int = 106, extra=()):
+    """sdf-nerfacto through its train CLI, in-process
+    (nerf_emitter_tpu_torch.scripts.train.main), at full width and at the
+    method's defaults, on the synthetic scene of the `train` phase (views at
+    res^2, the instant-ngp parser), cut: the takeover at step `takeover` of
+    2,000 and `steps` steps in all (12 takeover steps reach the guiding
+    rebuild at takeover step 10), the cache distilled for `distill` of
+    2,000 steps, an eval view at step `eval_every` and checkpoints at
+    `save_every` and at the end. Then `--resume` to `resume_to` in a new
+    Trainer from that checkpoint (re-distilling the cache). On the CPU
+    (`dev` cpu) the CLI gets --device cpu and `extra` flags. The stages are
+    timed by scripts/method_run.py's watch; the fusion's inputs and the
+    state after the restore are kept for the checks. Returns (record,
+    checks, the port's kernel launches over the whole path)."""
+    from nerf_emitter_tpu_torch import kernels
+    from nerf_emitter_tpu_torch.data.synthetic import make_synthetic_dataset
+    from nerf_emitter_tpu_torch.engine import checkpoints
+    from nerf_emitter_tpu_torch.engine.trainer import Trainer
+    from nerf_emitter_tpu_torch.pipelines import tsdf
+    from nerf_emitter_tpu_torch.scripts import method_run, train
+    from nerf_emitter_tpu_torch.scripts.profiling import Stages, device_trace
+
+    cuda = dev.type == "cuda"
+    tree = checkpoints.to_tree
+
+    def state_of(trainer):
+        p = trainer.pipeline
+        return (tree(trainer._nerf_tree()), tree(p.sdf_state),
+                (p._takeover_size, p._takeover_spp, dict(p._lr_up_scale)))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = make_synthetic_dataset(Path(tmp) / "scene", n_views=views, width=res, height=res, seed=seed)
+        argv = ["sdf-nerfacto", "--datacfg.data", str(scene), "--output-dir", str(Path(tmp) / "out"),
+                "--experiment-name", "smoke", "--seed", str(seed), "--pipeline.takeover-step", str(takeover),
+                "--pipeline.distill-steps", str(distill), "--steps-per-eval-image", str(eval_every),
+                "--steps-per-save", str(save_every), *(() if cuda else ("--device", "cpu")), *extra]
+        kernels.reset_launches()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with Stages(dev) as st:
+            method_run.watch(st)
+            st.wrap(tsdf, "integrate_tsdf", keep_out=True, keep_args=True)
+            st.wrap(Trainer, "load_checkpoint", after=state_of)
+            first = train.main(argv + ["--max-num-iterations", str(steps)])
+            first_s = time.perf_counter() - t0
+            saved = state_of(first)
+            n_first = len(st.calls["takeover_iteration"])
+            second = train.main(argv + ["--max-num-iterations", str(resume_to), "--resume"])
+        if cuda:
+            torch.cuda.synchronize()
+        path_launches = dict(kernels.launches)
+        total_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+        rows = [json.loads(ln) for ln in (first.run_dir / "logs/events.jsonl").read_text().splitlines()]
+    stats = method_run.summary(st)
+    resumed_step = second.pipeline.sdf_state.step
+    # where a takeover step's time goes: one traced step of the resumed run
+    # (after the warm-up step device_trace takes)
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    step_trace = device_trace(lambda: second.pipeline.takeover_iteration(gen), calls=1, top=8) if cuda else None
+
+    # the card's fusion against the CPU's on the same depth images
+    fuse = st.calls["integrate_tsdf"][0]
+    (cams, depth, fres, fscale), box = fuse["args"][0], fuse["args"][1]["object_aabb"]
+    fused = fuse["out"].cpu()
+    cpu_cams = type(cams)(**{k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in vars(cams).items()})
+    on_cpu = tsdf.integrate_tsdf(cpu_cams, depth.cpu(), fres, fscale, object_aabb=box.cpu())
+    off = (fused - on_cpu).abs() > 1e-6
+    fragile = tsdf_fragile(cams, depth, fres, fscale, box).cpu()
+    tsdf_check = {"within": not bool((off & ~fragile).any()), "atol": 1e-6, "voxels": off.numel(),
+                  "differing": int(off.sum()), "fragile": int(fragile.sum()),
+                  "differing_not_fragile": int((off & ~fragile).sum()),
+                  "max_abs_err": float((fused - on_cpu).abs().max())}
+    (loaded_nerf, loaded_sdf, loaded_schedule), = [c["after"] for c in st.calls["load_checkpoint"]]
+    take_ms = stats["takeover"]["ms_per_step"]
+    pre = stats["pretrain"]
+    rec = dict(
+        views=views, res=res, argv=argv,
+        reduced=[f"--pipeline.takeover-step {takeover} (of 2000)", f"--max-num-iterations {steps} (of 2320)",
+                 f"--pipeline.distill-steps {distill} (of 2000)", f"--steps-per-eval-image {eval_every}",
+                 f"--steps-per-save {save_every}", f"then --resume to {resume_to}"],
+        first_run_s=first_s, total_s=total_s, pretrain=pre,
+        tsdf_init=dict(stats["tsdf_init"], fused_res=fres, fused_interior_share=float((fused < 0).float().mean()),
+                       card_vs_cpu=tsdf_check),
+        guiding_build_s=stats["guiding_build_s"], distillations=stats["distillations"],
+        takeover=dict(by_size=stats["takeover"]["by_size"], ms_per_step=take_ms[:n_first],
+                      ms_per_step_resumed=take_ms[n_first:], last=stats["takeover"]["last"]),
+        eval=dict(seconds=stats["eval_step_s"], rows=[r for r in rows if any(k.startswith("eval/") for k in r)],
+                  launches=[c["launches"] for c in st.calls["eval_step"]]),
+        save_s=stats["save_checkpoint_s"], restore_s=stats["restore_s"], bind_s=stats["resume_takeover_bind_s"],
+        load_s=st.seconds("load_checkpoint"), peak_mem_gb=peak,
+        # stages nest: load_checkpoint holds restore and resume_takeover_bind
+        k5_launches_by_stage=stats["k5_launches_by_stage"],
+        launches=path_launches, trace_one_takeover_step=step_trace)
+    k5 = method_run.K5
+    checks = {
+        "losses_finite": method_run.finite_metrics(st)
+        and all(math.isfinite(v) for r in rows for k, v in r.items() if k != "ts"),
+        "rgb_loss_fell_0.7x": pre["rgb_loss_last10"] < 0.7 * pre["rgb_loss_first10"],
+        "tsdf_card_vs_cpu": tsdf_check,
+        "restored_nerf_bit_equal": trees_equal(loaded_nerf, saved[0]),
+        "restored_sdf_bit_equal": trees_equal(loaded_sdf, saved[1]),
+        "replayed_schedule_equal": loaded_schedule == saved[2],
+        "distill_k5_launches_are_steps_plus_holdout": len(stats["distillations"]) == 2 and all(
+            d["k5_launches"] == distill + 8 for d in stats["distillations"]),
+        "eval_launched_k5": bool(st.calls["eval_step"]) and all(
+            c["launches"].get(k5, 0) >= 1 for c in st.calls["eval_step"]),
+        "resumed_steps_ran": resumed_step == resume_to - takeover,
+    }
+    return rec, checks, path_launches
+
+
+def trees_equal(a, b) -> bool:
+    """Two state trees (engine/checkpoints.py's) equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(trees_equal(x, y) for x, y in zip(a, b))
+    return a == b
 
 
 def main() -> int:
@@ -1642,17 +1808,33 @@ def main() -> int:
     if bad:
         raise AssertionError(f"train: failed checks {bad}: {train_checks}")
     del tmodel, t_k5, t_two, t_ref, t_k5_fn, t_two_fn
+    torch.cuda.empty_cache()
+
+    # ---- phase 13b: sdf-nerfacto through its train CLI (`pipeline`):
+    # pretraining, the TSDF init, the guiding, the cache distilled with K5
+    # as its teacher, takeover steps, an eval view lit by K5, checkpoints,
+    # then --resume in a new Trainer
+    t_phase = time.perf_counter()
+    pipe_rec, pipe_checks, pipe_launches = pipeline(dev, args.seed)
+    emit(dict(phase="pipeline", **pipe_rec, checks=pipe_checks, phase_s=time.perf_counter() - t_phase))
+    bad = [k for k, c in pipe_checks.items() if not (c["within"] if isinstance(c, dict) else c)]
+    if bad:
+        raise AssertionError(f"pipeline: failed checks {bad}: {pipe_checks}")
+    if pipe_launches.get("mega_pipeline", 0) < 1:
+        raise AssertionError(f"the pipeline did not run K5: {pipe_launches}")
 
     # ---- phase 14: the kernels line. K5 carries the query (phase 3), the
     # other schedules (phase 7), the turntable (phase 9), the
-    # distillation's teacher (phase 11) and the trained field's emitter
-    # (phase 13); K3 and K4 the two-kernel query (phases 3 and 13); K2 the
+    # distillation's teacher (phase 11), the trained field's emitter
+    # (phase 13) and the train CLI's run (phase 13b); K3 and K4 the
+    # two-kernel query (phases 3 and 13); K2 the
     # staged query; K1 the backward (phase 4) and the staged query; the
     # field MLP alone its own phase (one launch at the field's shape); P1-P3
     # the profiling scripts (phase 6). Each reports its launches in the
     # runs of its own paths.
     # `launches` sums a kernel's paths; `launches_by_path` splits them.
-    path_of = {"mega_pipeline": ["query", "schedules", "turntable", "distill", "render", "takeover", "train"],
+    path_of = {"mega_pipeline": ["query", "schedules", "turntable", "distill", "render", "takeover", "train",
+                                 "pipeline"],
                "proposal": ["two_kernel_query", "train"], "field_mlp": ["field_mlp"],
                "field_composite": ["two_kernel_query", "train"],
                "fused_density": ["backward", "staged_query", "takeover"],
@@ -1664,7 +1846,7 @@ def main() -> int:
     counts = {"query": fwd_launches, "two_kernel_query": two_launches, "backward": bwd_launches,
               "staged_query": staged_launches, "field_mlp": mlp_launches, "schedules": sched_launches,
               "turntable": tt_launches, "distill": distill_launches, "render": render_launches,
-              "takeover": take_launches, "train": train_k5 | train_two,
+              "takeover": take_launches, "train": train_k5 | train_two, "pipeline": pipe_launches,
               **script_launches}
 
     def by_path(name):

@@ -10,7 +10,12 @@ Raw parameters keep their flax names and layout: the hash tables
 deltas `camera_opt_deltas` and `rotation_opt_deltas` (n, 6). The distilled
 student's tree (`hidden_{i}`, `out`) loads into `EmitterLightField` the
 same way. `load_sdf_scene` carries an SDF scene's grids, envmap and
-guiding mixture.
+guiding mixture; `load_train_state` a NeRF train state (the parameters and
+each group's Adam moments) and `load_sdf_opt_state` a takeover state (the
+scene, the step, the optimiser's moments and the running means), so that a
+test can start both packages from one state. Optimiser states are read by
+their optax attribute names (`inner_states`, `inner_state`, `mu`, `nu`,
+`count`).
 """
 
 from __future__ import annotations
@@ -100,3 +105,85 @@ def load_sdf_scene(scene, device=None):
             *(_tensor(getattr(guide, k), device) for k in ("positions", "weights", "stds"))),
         bsdf_type=int(scene.bsdf_type), hide_emitters=bool(scene.hide_emitters),
     )
+
+
+def _first(node, has):
+    """The first node, depth first, of an optax state tree (tuples,
+    mappings, named tuples) for which has(node) holds."""
+    if has(node):
+        return node
+    inner = getattr(node, "inner_state", None)
+    children = ([inner] if inner is not None else list(node.values()) if isinstance(node, Mapping)
+                else list(node) if isinstance(node, tuple) else [])
+    for child in children:
+        found = _first(child, has)
+        if found is not None:
+            return found
+    return None
+
+
+def _field(node, name):
+    return node.get(name) if isinstance(node, Mapping) else getattr(node, name, None)
+
+
+def _is_moments(node) -> bool:
+    return all(_field(node, k) is not None for k in ("mu", "nu", "count"))
+
+
+def load_train_state(model: nn.Module, optimizer, state):
+    """The port's TrainState from another package's train state `state`
+    (step, params, opt_state; the JAX package's TrainState is one): the
+    parameters into `model`, and into each group of `optimizer` (the port's
+    MultiOptimizer) the Adam moments and count of that group's optax chain
+    and its schedule's count."""
+    from .engine.train_loop import TrainState
+
+    load_flax_params(model, state.params)
+    names = {id(p): n for n, p in model.named_parameters()}
+    for group, grp in optimizer.groups.items():
+        # the group's optax chain: a plain tuple (named tuples are states)
+        chain = _first(state.opt_state.inner_states[group],
+                       lambda n: isinstance(n, tuple) and not hasattr(n, "_fields"))
+        moments = _first(chain, _is_moments)
+        sched = next(s for s in chain if s is not moments and _field(s, "count") is not None)
+        mu = _flatten(_field(moments, "mu").get("params", _field(moments, "mu")))
+        nu = _flatten(_field(moments, "nu").get("params", _field(moments, "nu")))
+        tree = {"count": int(np.asarray(_field(sched, "count"))), "step": [], "exp_avg": [], "exp_avg_sq": []}
+        for p in grp.params:
+            path, transpose = _flax_path(model, names[id(p)])
+            tree["step"].append(torch.tensor(float(np.asarray(_field(moments, "count"))), dtype=torch.float32))
+            for key, flat in (("exp_avg", mu), ("exp_avg_sq", nu)):
+                arr = flat[path].T if transpose else flat[path]
+                tree[key].append(torch.from_numpy(np.array(arr, dtype=np.float32)).to(p.device))
+        grp.load_state_tree(tree)
+    return TrainState(step=int(np.asarray(state.step)))
+
+
+def load_sdf_opt_state(state, tx, device=None):
+    """The port's SdfOptState from another package's takeover state (the JAX
+    package's SdfOptState): the scene (load_sdf_scene), the step, the
+    running means and their count, and `tx`'s state (the port's
+    SdfOptimizer of the same recipe) with each variable's moments and count
+    from the state's multi_transform label of that name."""
+    from .pipelines.sdf_optimizer import SdfOptState
+
+    scene = load_sdf_scene(state.scene, device)
+
+    def fill(port, src, name):
+        if isinstance(port, dict) and set(port) == {"mu", "nu", "count"}:
+            return {"mu": _tensor(getattr(_field(src, "mu"), name), device),
+                    "nu": _tensor(getattr(_field(src, "nu"), name), device),
+                    "count": int(np.asarray(_field(src, "count")))}
+        if isinstance(port, tuple):
+            return tuple(fill(x, src, name) for x in port)
+        return port
+
+    opt = {}
+    for name, t in tx.txs.items():
+        moments = _first(state.opt_state.inner_states[name], _is_moments)
+        opt[name] = fill(t.init(getattr(scene, name)), moments, name)
+    means = state.mean_params
+    return SdfOptState(
+        step=int(np.asarray(state.step)), scene=scene, opt_state=opt,
+        mean_params=None if means is None else {k: _tensor(v, device) for k, v in means.items()},
+        mean_count=int(np.asarray(state.mean_count)))

@@ -71,6 +71,37 @@ class GroupOptimizer:
     def lr(self) -> float:
         return self.adam.param_groups[0]["lr"]
 
+    def seek(self, count: int) -> None:
+        """Put the schedule at step `count`: the learning rate LambdaLR
+        would hold after `count` steps."""
+        self.scheduler.last_epoch = count
+        for group, base, lam in zip(self.adam.param_groups, self.scheduler.base_lrs, self.scheduler.lr_lambdas):
+            group["lr"] = base * lam(count)
+
+    def state_tree(self) -> dict:
+        """The group's state as a tree of tensors that does not change shape
+        over training: the schedule's step `count` and, per parameter in
+        order, Adam's `step`, `exp_avg` and `exp_avg_sq` (zeros before the
+        parameter's first update)."""
+        tree = {"count": self.scheduler.last_epoch, "step": [], "exp_avg": [], "exp_avg_sq": []}
+        for p in self.params:
+            st = self.adam.state.get(p, {})
+            tree["step"].append(st["step"].detach().clone() if st else torch.zeros((), dtype=torch.float32))
+            for k in ("exp_avg", "exp_avg_sq"):
+                tree[k].append(st[k].detach().clone() if st else torch.zeros_like(p))
+        return tree
+
+    @torch.no_grad()
+    def load_state_tree(self, tree: dict) -> None:
+        """The inverse of state_tree: a parameter whose step is 0 has no
+        Adam state, as before its first update."""
+        self.adam.state.clear()
+        for p, step, m, v in zip(self.params, tree["step"], tree["exp_avg"], tree["exp_avg_sq"]):
+            if float(step) > 0:
+                self.adam.state[p] = {"step": step.detach().clone().cpu(), "exp_avg": m.to(p).clone(),
+                                      "exp_avg_sq": v.to(p).clone()}
+        self.seek(int(tree["count"]))
+
 
 class MultiOptimizer:
     """`optax.multi_transform` on torch: named parameters split into groups
@@ -89,6 +120,14 @@ class MultiOptimizer:
 
     def lrs(self) -> dict[str, float]:
         return {name: grp.lr() for name, grp in self.groups.items()}
+
+    def state_tree(self) -> dict:
+        """{group: GroupOptimizer.state_tree()}."""
+        return {name: grp.state_tree() for name, grp in self.groups.items()}
+
+    def load_state_tree(self, tree: dict) -> None:
+        for name, grp in self.groups.items():
+            grp.load_state_tree(tree[name])
 
 
 def build_optimizer(

@@ -59,6 +59,27 @@ class TrainState:
     step: int
 
 
+def train_state_tree(state: TrainState, model: NerfactoModel, optimizer: MultiOptimizer) -> dict:
+    """The NeRF's whole train state as a tree (what a checkpoint stores):
+    the step, the parameters by name and each group's Adam moments and
+    schedule step (MultiOptimizer.state_tree)."""
+    return {"step": state.step, "params": {n: p.detach() for n, p in model.named_parameters()},
+            "opt_state": optimizer.state_tree()}
+
+
+@torch.no_grad()
+def load_train_state_tree(tree: dict, model: NerfactoModel, optimizer: MultiOptimizer) -> TrainState:
+    """Copy a train_state_tree into the model and the optimizer; returns
+    the TrainState."""
+    params = dict(model.named_parameters())
+    if set(tree["params"]) != set(params):
+        raise KeyError(f"parameter names differ: {sorted(set(tree['params']) ^ set(params))}")
+    for name, p in params.items():
+        p.copy_(tree["params"][name])
+    optimizer.load_state_tree(tree["opt_state"])
+    return TrainState(step=int(tree["step"]))
+
+
 def build_nerfacto_optimizer(config: TrainConfig, model: NerfactoModel) -> MultiOptimizer:
     groups = {
         "fields": OptimizerGroupConfig(

@@ -1,22 +1,29 @@
-"""Path guiding by a vMF mixture fit to the NeRF's light point cloud (port
-of `VMFGuiding` in nerf_emitter_tpu/guiding/path_guiding.py).
+"""Path-guiding strategies (port of nerf_emitter_tpu/guiding/path_guiding.py),
+by the registry's names:
 
-Extract the light point cloud, mean-compensate and threshold it, fit a
-64-component spherical GMM in render space, and load (position, weight,
-std) into a `VMFMixture`; rebuilt every `rebuild_every` takeover steps. The
-envmap strategies (`EnvGuiding`, `EmitterImageGuiding`) are not ported yet
-(ROADMAP.md, Queue 1 item 5).
+- 'vmf' (`VMFGuiding`): extract the NeRF's light point cloud,
+  mean-compensate and threshold it, fit a 64-component spherical GMM in
+  render space, and load (position, weight, std) into a `VMFMixture`;
+  rebuilt every `rebuild_every` takeover steps;
+- 'env' (`EnvGuiding`): the ground-truth envmap of the dataset, both the
+  sampling proposal and the radiance (the sdf-gt-envmap baseline);
+- 'emitter_xml' (`EmitterImageGuiding`): any envmap image swapped in for
+  relighting.
+
+The envmap strategies read `.npy` or `.exr` images (utils/exr.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..renderer.emitters import VMFMixture
-from ..utils import coords
+from ..renderer.emitters import EnvmapEmitter, VMFMixture
+from ..utils import coords, exr
 from .gmm import fit_spherical_gmm
 from .light_pc import compensate_pc, extract_light_point_cloud
 
@@ -55,3 +62,38 @@ class VMFGuiding:
 
     def should_rebuild(self, mi_step: int) -> bool:
         return mi_step % self.rebuild_every == 0
+
+
+def _envmap_from_file(path: Path, device) -> EnvmapEmitter:
+    img = np.load(path) if path.suffix == ".npy" else exr.read_exr(path)
+    return EnvmapEmitter.create(torch.as_tensor(np.asarray(img[..., :3], np.float32), device=device))
+
+
+@dataclasses.dataclass
+class EnvGuiding:
+    """The ground-truth envmap as the proposal (the sdf-gt-envmap
+    baseline): `env_path`, or env.exr in the dataset's directory."""
+
+    env_path: Optional[Path] = None
+
+    def build_envmap(self, data_dir: Path, device=None) -> EnvmapEmitter:
+        path = Path(self.env_path) if self.env_path else Path(data_dir) / "env.exr"
+        return _envmap_from_file(path, device)
+
+
+@dataclasses.dataclass
+class EmitterImageGuiding:
+    """An arbitrary relighting emitter: any envmap image, swapped in at eval
+    time."""
+
+    emitter_path: Path = Path("env.exr")
+
+    def build_envmap(self, device=None) -> EnvmapEmitter:
+        return _envmap_from_file(Path(self.emitter_path), device)
+
+
+GUIDING_REGISTRY = {
+    "vmf": VMFGuiding,
+    "env": EnvGuiding,
+    "emitter_xml": EmitterImageGuiding,  # the reference's name, kept for the CLI
+}

@@ -11,8 +11,8 @@ from typing import Optional
 import torch
 
 from ..cameras.cameras import Cameras
-from ..pipelines.nerf_emitter import id_column
 from ..utils import coords
+from ..utils.device import id_column
 
 
 def camera_rays_in_render_space(

@@ -1,7 +1,8 @@
 """What the profiling entry points share: their configuration (the
 reference scripts' 2^16 rays from the origin, near 0.05, far 6.0, no
 carve-out, samples (256, 96, 48), 128 cameras, the `freq` model with random
-weights from a seed), a timer and a device-timeline trace.
+weights from a seed), a timer, a device-timeline trace, and `Stages`, which
+times the calls of a run's stages.
 
 On CUDA a time is the mean of `iters` calls between two CUDA events, after
 one warm-up call. On the CPU, which a caller asks for explicitly (the
@@ -10,6 +11,7 @@ tests do, at a tiny size), it is the host clock around the same calls.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import tempfile
@@ -150,3 +152,70 @@ class ProfileSetup:
         # B alone runs on plausible bins: sorted uniforms in [0, 1)
         u = torch.rand((nerf_samples + 1, num_rays), generator=g)
         self.random_bins = torch.sort(u, dim=0).values.to(dev).contiguous()
+
+
+class Stages:
+    """While entered, wraps methods and module functions: for each call its
+    seconds (host clock with the device synchronised before and after; with
+    `events`, CUDA events around the call and nothing synchronised), the
+    port's kernel launches during it, and optionally what it returned
+    (`keep_out`), its arguments (`keep_args`) and after(args[0])
+    (`after`, for a method: of its object once the call returned). The
+    wrappers only observe; leaving restores the originals."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.calls: dict[str, list] = {}
+        self._undo = []
+
+    def wrap(self, owner, attr: str, *, stage=None, events=False, keep_out=False, keep_args=False, after=None):
+        from .. import kernels
+
+        real = getattr(owner, attr)
+        calls = self.calls.setdefault(stage or attr, [])
+        cuda = self.cuda
+
+        @functools.wraps(real)
+        def timed(*args, **kwargs):
+            before = dict(kernels.launches)
+            if events and cuda:
+                marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                marks[0].record()
+                out = real(*args, **kwargs)
+                marks[1].record()
+                rec = {"events": marks}
+            else:
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(*args, **kwargs)
+                if cuda:
+                    torch.cuda.synchronize()
+                rec = {"s": time.perf_counter() - t0}
+            rec["launches"] = {k: n - before.get(k, 0) for k, n in kernels.launches.items() if n != before.get(k, 0)}
+            if keep_out:
+                rec["out"] = out
+            if keep_args:
+                rec["args"] = (args, kwargs)
+            if after is not None:
+                rec["after"] = after(args[0])
+            calls.append(rec)
+            return out
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, real))
+
+    def seconds(self, stage: str) -> list:
+        """Each call's seconds (CUDA events read after a synchronise)."""
+        if self.cuda:
+            torch.cuda.synchronize()
+        return [c["events"][0].elapsed_time(c["events"][1]) * 1e-3 if "events" in c else c["s"]
+                for c in self.calls.get(stage, [])]
+
+    def __enter__(self) -> "Stages":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for owner, attr, real in reversed(self._undo):
+            setattr(owner, attr, real)
+        self._undo.clear()

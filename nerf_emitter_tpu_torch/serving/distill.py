@@ -37,9 +37,8 @@ from ..fields.encodings import nerf_encode
 from ..fields.mlp import MLP
 from ..ops.colliders import aabb_far_intersect_collider
 from ..ops.fused_field import named_params
-from ..pipelines.nerf_emitter import id_column
 from ..utils import coords
-from ..utils.device import resolve_device
+from ..utils.device import id_column, resolve_device
 
 EPS_LOG = 1e-3  # log-space fit floor; subtracted back when serving
 

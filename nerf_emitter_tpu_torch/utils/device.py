@@ -1,4 +1,4 @@
-"""Device selection for the port's entry points.
+"""Device selection for the port's entry points, and id columns on a device.
 
 Entry points run on the card unless the caller asks for the CPU: `None`
 means CUDA, and a missing CUDA device is an error, never a quiet fallback.
@@ -20,3 +20,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def id_column(value, shape, device) -> torch.Tensor:
+    """A long tensor of `shape` holding `value`, an int or a tensor (for
+    example a device-side draw). An int is filled in on the device: a
+    host-to-device copy of it would synchronise the stream on every call."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device).long().expand(shape)
+    return torch.full(shape, int(value), dtype=torch.long, device=device)
