@@ -26,7 +26,10 @@ scene of 64 views at 256^2, with a held-out view rendered before and after,
 and the trained field served through K5 and K3 + K4; then the whole method
 through its train CLI on that scene (pretraining, the TSDF init, the
 guiding, the cache distilled with K5 as its teacher, takeover steps, an
-eval view lit by K5, checkpoints, and a resumed run). Every phase prints
+eval view lit by K5, checkpoints, and a resumed run); then the end-task
+tools as round 5's protocol drives them, cut (gen_data's scene and its
+relit twin, a short sdf-nerfacto run lit by K5, eval, every render
+subcommand, the exporter and chamfer). Every phase prints
 one JSON line; any failure raises and the script exits non-zero. The last
 line is {"ok": true, "device": {...}}.
 
@@ -774,6 +777,136 @@ def pipeline(dev, seed: int, *, views: int = TRAIN_VIEWS, res: int = TRAIN_RES, 
             c["launches"].get(k5, 0) >= 1 for c in st.calls["eval_step"]),
         "resumed_steps_ran": resumed_step == resume_to - takeover,
     }
+    return rec, checks, path_launches
+
+
+def nearest_sq_f64(a, b, chunk: int = 1024):
+    """For each point of a (N, 3), the squared distance to its nearest point
+    of b (M, 3), in float64 numpy (|a|^2 + |b|^2 - 2 a.b: float64 keeps the
+    cancellation far below the distances)."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    bb = (b * b).sum(1)
+    return np.concatenate([np.maximum(((q * q).sum(1)[:, None] + bb[None, :] - 2.0 * q @ b.T).min(1), 0.0)
+                           for q in (a[i:i + chunk] for i in range(0, len(a), chunk))])
+
+
+def endtask(dev, seed: int, *, views: int = 20, relit_views: int = 10, res: int = 64, spp: int = 8,
+            takeover: int = 40, steps: int = 44, mesh_res: int = 96, points: int = 20_000, extra=()):
+    """The end-task tools as round 5's protocol drives them
+    (scripts/endtask_run.py), cut: gen_data's composite object with banded
+    albedo, `views` views at res^2 and spp (and `relit_views` under the
+    rolled envmap), the ground-truth mesh at mesh_res, sdf-nerfacto through
+    its train CLI at full width with the round's flags and the emitter
+    pinned to K5 (the takeover at `takeover`, `steps` steps in all), eval
+    (NVS and relit), every render subcommand, the exporter from the run,
+    and chamfer on `points` points. Checks: transforms.json equal to a CPU
+    run's (poses and object_aabb within 1e-6); the masks equal to the CPU
+    render's but for at most 0.5% of the pixels (grazing rays whose hit the
+    two devices' rounding decides); marching cubes of gt_sdf.npy at
+    mesh_res on `dev` against the CPU (face and vertex counts equal, every
+    vertex within 1e-5 of the other's nearest); chamfer(GT, GT) = 0 and the
+    device chamfer against a float64 numpy nearest neighbour within 1e-6
+    relative; every eval metric finite; config.json byte-identical after
+    the tools; every render subcommand wrote its files. Returns (record,
+    checks, the port's kernel launches over the path)."""
+    import argparse as ap_
+
+    import numpy as np
+
+    from nerf_emitter_tpu_torch import kernels
+    from nerf_emitter_tpu_torch.exporter.marching_cubes import read_ply_or_obj, upsampled_marching_cubes
+    from nerf_emitter_tpu_torch.scripts import chamfer, endtask_run, gen_data, render
+    from nerf_emitter_tpu_torch.utils import exr
+
+    d = str(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        args = ap_.Namespace(views=views, relit_views=relit_views, res=res, spp=spp, mesh_res=mesh_res,
+                             n_points=points)
+        kernels.reset_launches()
+        run = endtask_run.Run(dev)
+        scenes = endtask_run.make_scenes(run, tmp, args, d)
+        scene, _, _, gt_mesh = scenes
+        flags = ["--pipeline.takeover-step", str(takeover), "--max-num-iterations", str(steps),
+                 "--train.max-steps", str(steps), "--seed", str(seed), *extra]
+        arm = endtask_run.run_arm(run, "baseline", tmp, *scenes, args, d, flags)
+        cfg = tmp / "runs" / "prod5f" / "sdf-nerfacto" / "config.json"
+        cfg_bytes = cfg.read_bytes()
+        (tmp / "stroke_in.json").write_text(json.dumps({"camera_index": 0, "pixels": [[res // 2, res // 2],
+                                                                                       [res // 2, res // 2 + 3]]}))
+        sub_args = {"rotate-light": ["--n-frames", "2", "--video"], "camera-path": ["--n-frames", "2", "--video"],
+                    "interpolate": ["--n-frames", "2"], "spiral": ["--n-frames", "2"],
+                    "envmap": ["--width", "64", "--height", "32"],
+                    "stroke": ["--stroke-path", str(tmp / "stroke_in.json")]}
+        written = {}
+        for sub in render.COMMANDS:
+            dst = tmp / "render" / sub
+            run.stage(f"render/{sub}", lambda sub=sub, dst=dst: render.main(
+                [sub, "--load-config", str(cfg), "--output-path", str(dst), "--spp", "2", "--device", d,
+                 *sub_args.get(sub, [])]))
+            written[sub] = sorted(p.name for p in dst.parent.glob(f"{sub}*")) if sub == "stroke" else \
+                sorted(p.name for p in dst.iterdir())
+        path_launches = dict(kernels.launches)
+        config_unchanged = cfg.read_bytes() == cfg_bytes
+
+        # the CPU's transforms.json and masks of the same views (one sample:
+        # the mask does not depend on the draws)
+        cpu_scene = gen_data.main(["--object", "composite", "--albedo", "bands", "--width", str(res), "--height",
+                                   str(res), "--spp", "1", "--path-type", "random", "--seed", "0", "--n-views",
+                                   str(views), "--out", str(tmp / "cpu_scene"), "--device", "cpu"])
+        t_card, t_cpu = (json.loads((p / "transforms.json").read_text()) for p in (scene, cpu_scene))
+        pose_err = max(float(np.abs(np.asarray(a["transform_matrix"]) - np.asarray(b["transform_matrix"])).max())
+                       for a, b in zip(t_card["frames"], t_cpu["frames"]))
+        box_err = float(np.abs(np.asarray(t_card["object_aabb"]) - np.asarray(t_cpu["object_aabb"])).max())
+        same_meta = {k: t_card[k] for k in t_card if k not in ("frames", "object_aabb")} == \
+            {k: t_cpu[k] for k in t_cpu if k not in ("frames", "object_aabb")}
+        masks = [(exr.read_exr(scene / f["file_path"])[..., 3], exr.read_exr(cpu_scene / f["file_path"])[..., 3])
+                 for f in t_card["frames"]]
+        differing = int(sum((a != b).sum() for a, b in masks))
+        pixels = sum(a.size for a, _ in masks)
+
+        # marching cubes of the ground truth on the card against the CPU
+        gt_sdf = np.load(scene / "gt_sdf.npy")
+        (v_dev, f_dev), (v_cpu, f_cpu) = (upsampled_marching_cubes(gt_sdf, mesh_res, device=x) for x in (d, "cpu"))
+        vd, vc = (torch.as_tensor(v, dtype=torch.float64, device=dev) for v in (v_dev, v_cpu))
+        vert_err = float(torch.maximum(chamfer.nearest_sq_dist(vd, vc, 4096).max(),
+                                       chamfer.nearest_sq_dist(vc, vd, 4096).max()).sqrt())
+
+        # chamfer: the same points give 0; the device against float64 numpy
+        gt_v, gt_f = read_ply_or_obj(gt_mesh / "mesh.ply")
+        run_v, run_f = read_ply_or_obj(tmp / "mesh_baseline" / "mesh.ply")
+        a = chamfer.sample_mesh_points(run_v, run_f, points, seed=0)
+        b = chamfer.sample_mesh_points(gt_v, gt_f, points, seed=1)
+        same_points = chamfer.chamfer_distance(b, b, device=d)
+        on_dev = chamfer.chamfer_distance(a, b, device=d)
+        in_f64 = float(nearest_sq_f64(a, b).mean() + nearest_sq_f64(b, a).mean())
+    metrics = {"nvs": arm["nvs"], "relight": arm["relight"]}
+    rel = abs(on_dev - in_f64) / max(in_f64, 1e-30)
+    checks = {
+        "transforms_card_vs_cpu": dict(pose_max_abs_err=pose_err, object_aabb_max_abs_err=box_err,
+                                       intrinsics_equal=same_meta, bar=1e-6,
+                                       within=same_meta and pose_err <= 1e-6 and box_err <= 1e-6),
+        "masks_card_vs_cpu": dict(differing=differing, pixels=pixels, share=differing / pixels, bar=0.005,
+                                  within=differing / pixels <= 0.005),
+        "marching_cubes_card_vs_cpu": dict(faces=[len(f_dev), len(f_cpu)], verts=[len(v_dev), len(v_cpu)],
+                                           max_vertex_err=vert_err, bar=1e-5,
+                                           within=len(f_dev) == len(f_cpu) and len(v_dev) == len(v_cpu)
+                                           and vert_err <= 1e-5),
+        "chamfer_same_points_zero": dict(value=same_points, within=same_points == 0.0),
+        "chamfer_device_vs_float64": dict(device=on_dev, float64=in_f64, rel_err=rel, bar=1e-6, within=rel <= 1e-6),
+        "eval_metrics_finite": dict(within=all(math.isfinite(v) for m in metrics.values() for v in m.values())),
+        "config_json_unchanged": dict(within=config_unchanged),
+        "render_subcommands_wrote": dict(written=written, within=all(written.values())),
+    }
+    rec = dict(views=views, relit_views=relit_views, res=res, spp=spp, mesh_res=mesh_res, points=points,
+               reduced=[f"{views} views at {res}^2, spp {spp} (of 60 at 128^2, spp 32)",
+                        f"{relit_views} relit views (of 30)", f"mesh at {mesh_res}^3 (of 192^3)",
+                        f"{points} chamfer points (of 250,000)", f"--pipeline.takeover-step {takeover} (of 2000)",
+                        f"--max-num-iterations {steps} (of 2320)"],
+               seconds={k: v["seconds"] for k, v in run.lines.items()}, metrics=metrics, chamfer=arm["chamfer"],
+               final_scene=run.lines["baseline/train"].get("final_scene"), launches=path_launches)
     return rec, checks, path_launches
 
 
@@ -1822,22 +1955,38 @@ def main() -> int:
         raise AssertionError(f"pipeline: failed checks {bad}: {pipe_checks}")
     if pipe_launches.get("mega_pipeline", 0) < 1:
         raise AssertionError(f"the pipeline did not run K5: {pipe_launches}")
+    torch.cuda.empty_cache()
+
+    # ---- phase 13c: the end-task tools (`endtask`): gen_data, the
+    # sdf-nerfacto run with the emitter pinned to K5 (K5 and, in the
+    # takeover's backward, K1), eval (NVS and relit), every render
+    # subcommand, the exporter and chamfer, held against the CPU and float64
+    t_phase = time.perf_counter()
+    end_rec, end_checks, end_launches = endtask(dev, args.seed)
+    emit(dict(phase="endtask", **end_rec, checks=end_checks, phase_s=time.perf_counter() - t_phase))
+    bad = [k for k, c in end_checks.items() if not c["within"]]
+    if bad:
+        raise AssertionError(f"endtask: failed checks {bad}: {end_checks}")
+    if end_launches.get("mega_pipeline", 0) < 1 or end_launches.get("fused_density", 0) < 1:
+        raise AssertionError(f"the end-task path did not run K5 and K1: {end_launches}")
 
     # ---- phase 14: the kernels line. K5 carries the query (phase 3), the
     # other schedules (phase 7), the turntable (phase 9), the
     # distillation's teacher (phase 11), the trained field's emitter
-    # (phase 13) and the train CLI's run (phase 13b); K3 and K4 the
+    # (phase 13), the train CLI's run (phase 13b) and the end-task tools
+    # (phase 13c); K3 and K4 the
     # two-kernel query (phases 3 and 13); K2 the
-    # staged query; K1 the backward (phase 4) and the staged query; the
+    # staged query; K1 the backward (phase 4), the staged query and the
+    # K5-lit takeovers (phases 12c and 13c); the
     # field MLP alone its own phase (one launch at the field's shape); P1-P3
     # the profiling scripts (phase 6). Each reports its launches in the
     # runs of its own paths.
     # `launches` sums a kernel's paths; `launches_by_path` splits them.
     path_of = {"mega_pipeline": ["query", "schedules", "turntable", "distill", "render", "takeover", "train",
-                                 "pipeline"],
+                                 "pipeline", "endtask"],
                "proposal": ["two_kernel_query", "train"], "field_mlp": ["field_mlp"],
                "field_composite": ["two_kernel_query", "train"],
-               "fused_density": ["backward", "staged_query", "takeover"],
+               "fused_density": ["backward", "staged_query", "takeover", "endtask"],
                "fused_field": ["staged_query"], "profile_query.kernel_a": ["profile_query"],
                "profile_query.kernel_b": ["profile_query"]}
     path_of |= {f"proposal_variant[{m}]": ["profile_kernel_a"] for m in mq.PROPOSAL_MODES}
@@ -1847,6 +1996,7 @@ def main() -> int:
               "staged_query": staged_launches, "field_mlp": mlp_launches, "schedules": sched_launches,
               "turntable": tt_launches, "distill": distill_launches, "render": render_launches,
               "takeover": take_launches, "train": train_k5 | train_two, "pipeline": pipe_launches,
+              "endtask": end_launches,
               **script_launches}
 
     def by_path(name):

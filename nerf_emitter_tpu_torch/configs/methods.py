@@ -10,8 +10,7 @@ nerf_emitter_tpu/configs/methods.py).
 - sdf-gt-envmap: the SDF alone under a known envmap (takeover at step 0,
   'env' guiding).
 
-Methods that plugins register are not discovered yet (ROADMAP.md, Queue 1
-item 6).
+Methods that plugins register (plugins/registry.py) join the built-ins.
 """
 
 from __future__ import annotations
@@ -152,9 +151,15 @@ METHOD_DESCRIPTIONS = {
 
 
 def all_method_configs():
-    """(name -> config factory, name -> description): the built-in
-    methods."""
-    return dict(METHOD_CONFIGS), dict(METHOD_DESCRIPTIONS)
+    """(name -> config factory, name -> description): the plugin-registered
+    methods (plugins/registry.py) and the built-ins, which win on a name
+    clash, so a plugin cannot shadow sdf-nerfacto."""
+    from ..plugins.registry import discover_methods
+
+    methods, descriptions = discover_methods()
+    methods.update(METHOD_CONFIGS)
+    descriptions.update(METHOD_DESCRIPTIONS)
+    return methods, descriptions
 
 
 def get_method_config(name: str) -> ExperimentConfig:

@@ -4,9 +4,10 @@ nerf_emitter_tpu/engine/trainer.py).
 `setup` parses the data, builds the model and the pipeline; `train` runs
 the steps, writing metrics every 10 steps (with rays/s and the ETA),
 rendering an eval view every `steps_per_eval_image` steps and saving every
-`steps_per_save`; checkpoints are engine/checkpoints.py's. Plugin
-dataparsers (ROADMAP.md, Queue 1 item 6), the viewer (item 8) and more
-than one device (item 7) are not ported and raise.
+`steps_per_save`; checkpoints are engine/checkpoints.py's. Dataparsers
+that plugins register (plugins/registry.py) are picked by name before the
+built-in ones. The viewer (ROADMAP.md, Queue 1 item 8) and more than one
+device (item 7) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ..engine.train_loop import eval_image_metrics, load_train_state_tree, train
 from ..fields.rotater import Rotater
 from ..models.nerfacto import NerfactoModel
 from ..pipelines.nerf_emitter import NerfEmitterPipeline
+from ..plugins.registry import discover_dataparsers
 from ..renderer.optimize import get_opt_config
 from ..utils import profiler
 from ..utils import writer as writer_mod
@@ -54,7 +56,15 @@ class Trainer:
     def setup(self) -> None:
         cfg = self.config
         d = cfg.datacfg
-        if d.dataparser == "nerfstudio-data":
+        plugin_parsers = discover_dataparsers()
+        if d.dataparser in plugin_parsers:
+            parse_split = plugin_parsers[d.dataparser].setup(d)
+            dp_cfg = None
+
+            def parse(_cfg, split):
+                return parse_split(split)
+
+        elif d.dataparser == "nerfstudio-data":
             dp_cfg = NerfstudioDataparserConfig(data=d.data, scene_scale=d.scene_scale, aabb_scale=d.aabb_scale,
                                                 eval_mode=d.eval_mode, mi_data=d.mi_data,
                                                 downscale_factor=d.downscale_factor or None)
@@ -65,8 +75,8 @@ class Trainer:
                                                 downscale_factor=d.downscale_factor)
             parse = parse_instant_ngp
         else:
-            raise NotImplementedError(f"dataparser {d.dataparser!r}: plugin dataparsers are not ported yet "
-                                      "(ROADMAP.md, Queue 1 item 6)")
+            raise ValueError(f"unknown dataparser {d.dataparser!r}; have instant-ngp-data, nerfstudio-data and "
+                             f"the plugins' {sorted(plugin_parsers)}")
         train_out = parse(dp_cfg, "train")
         self.dataset = build_dataset(train_out, device=self.device)
         try:
