@@ -29,7 +29,9 @@ guiding, the cache distilled with K5 as its teacher, takeover steps, an
 eval view lit by K5, checkpoints, and a resumed run); then the end-task
 tools as round 5's protocol drives them, cut (gen_data's scene and its
 relit twin, a short sdf-nerfacto run lit by K5, eval, every render
-subcommand, the exporter and chamfer). Every phase prints
+subcommand, the exporter and chamfer); then the learned denoiser fitted on
+that run's K5-lit renders and held against the CPU, and the texture,
+mesh-to-SDF and forward-gradient tools against the CPU. Every phase prints
 one JSON line; any failure raises and the script exits non-zero. The last
 line is {"ok": true, "device": {...}}.
 
@@ -39,7 +41,9 @@ Needs a CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import dataclasses
 import functools
 import json
 import math
@@ -793,14 +797,14 @@ def nearest_sq_f64(a, b, chunk: int = 1024):
 
 
 def endtask(dev, seed: int, *, views: int = 20, relit_views: int = 10, res: int = 64, spp: int = 8,
-            takeover: int = 40, steps: int = 44, mesh_res: int = 96, points: int = 20_000, extra=()):
+            takeover: int = 40, steps: int = 44, mesh_res: int = 96, points: int = 20_000, extra=(), root=None):
     """The end-task tools as round 5's protocol drives them
     (scripts/endtask_run.py), cut: gen_data's composite object with banded
     albedo, `views` views at res^2 and spp (and `relit_views` under the
     rolled envmap), the ground-truth mesh at mesh_res, sdf-nerfacto through
     its train CLI at full width with the round's flags and the emitter
     pinned to K5 (the takeover at `takeover`, `steps` steps in all), eval
-    (NVS and relit), every render subcommand, the exporter from the run,
+    (NVS, NVS with the learned denoiser, relit), every render subcommand, the exporter from the run,
     and chamfer on `points` points. Checks: transforms.json equal to a CPU
     run's (poses and object_aabb within 1e-6); the masks equal to the CPU
     render's but for at most 0.5% of the pixels (grazing rays whose hit the
@@ -809,8 +813,9 @@ def endtask(dev, seed: int, *, views: int = 20, relit_views: int = 10, res: int 
     vertex within 1e-5 of the other's nearest); chamfer(GT, GT) = 0 and the
     device chamfer against a float64 numpy nearest neighbour within 1e-6
     relative; every eval metric finite; config.json byte-identical after
-    the tools; every render subcommand wrote its files. Returns (record,
-    checks, the port's kernel launches over the path)."""
+    the tools; every render subcommand wrote its files. The files go to
+    `root` (kept, for the `denoise` phase), or to a temporary directory.
+    Returns (record, checks, the port's kernel launches over the path)."""
     import argparse as ap_
 
     import numpy as np
@@ -821,8 +826,8 @@ def endtask(dev, seed: int, *, views: int = 20, relit_views: int = 10, res: int 
     from nerf_emitter_tpu_torch.utils import exr
 
     d = str(dev)
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
+    with contextlib.ExitStack() as stack:
+        tmp = Path(root) if root is not None else Path(stack.enter_context(tempfile.TemporaryDirectory()))
         args = ap_.Namespace(views=views, relit_views=relit_views, res=res, spp=spp, mesh_res=mesh_res,
                              n_points=points)
         kernels.reset_launches()
@@ -882,7 +887,7 @@ def endtask(dev, seed: int, *, views: int = 20, relit_views: int = 10, res: int 
         same_points = chamfer.chamfer_distance(b, b, device=d)
         on_dev = chamfer.chamfer_distance(a, b, device=d)
         in_f64 = float(nearest_sq_f64(a, b).mean() + nearest_sq_f64(b, a).mean())
-    metrics = {"nvs": arm["nvs"], "relight": arm["relight"]}
+    metrics = {"nvs": arm["nvs"], "nvs_learned": arm["nvs_learned"], "relight": arm["relight"]}
     rel = abs(on_dev - in_f64) / max(in_f64, 1e-30)
     checks = {
         "transforms_card_vs_cpu": dict(pose_max_abs_err=pose_err, object_aabb_max_abs_err=box_err,
@@ -907,6 +912,244 @@ def endtask(dev, seed: int, *, views: int = 20, relit_views: int = 10, res: int 
                         f"--max-num-iterations {steps} (of 2320)"],
                seconds={k: v["seconds"] for k, v in run.lines.items()}, metrics=metrics, chamfer=arm["chamfer"],
                final_scene=run.lines["baseline/train"].get("final_scene"), launches=path_launches)
+    return rec, checks, path_launches
+
+
+def rel_l1(x: torch.Tensor, ref: torch.Tensor) -> float:
+    """tests/test_denoiser.py's relative L1 error of x against ref."""
+    return float(torch.mean(torch.abs(x - ref) / (torch.abs(ref) + 1e-2)))
+
+
+def noise2noise_contract(dev, seed: int) -> dict:
+    """tests/test_denoiser.py::test_noise2noise_fit_denoises on `dev`, drawn
+    from a torch.Generator there: a narrow predictor (radius 1, hidden 8,
+    depth 2, 80 steps at lr 5e-3) fitted on three pairs of noisy buffers of
+    a 32^2 image with an HDR hot spot; the denoised image's relative error
+    below 0.75x the noisy input's, the hot spot above 5."""
+    from nerf_emitter_tpu_torch.renderer import learned_denoise as ld
+
+    tiny = ld.DenoiserConfig(radius=1, hidden=8, depth=2, fit_steps=80, lr=5e-3)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    y = torch.linspace(0, 1, 32, device=dev)[:, None].expand(32, 32)
+    x = torch.linspace(0, 1, 32, device=dev)[None, :].expand(32, 32)
+    clean = torch.stack([0.5 + 0.4 * torch.sin(6 * x), 0.3 + 0.3 * y * x, 0.2 + 0.5 * y], dim=-1).clone()
+    clean[8:12, 8:12] += 25.0
+
+    def noisy():
+        return clean * (1.0 + 0.25 * torch.randn(clean.shape, generator=g, device=dev))
+
+    normal = torch.zeros_like(clean)
+    depth = torch.linspace(1, 2, 32, device=dev)[:, None, None].expand(32, 32, 1).contiguous()
+    pairs = [(noisy(), noisy(), normal, depth) for _ in range(3)]
+    module, loss = ld.fit_denoiser(torch.Generator(device=dev).manual_seed(seed + 2), pairs, tiny)
+    test = noisy()
+    with torch.no_grad():
+        out = ld.apply_denoiser(module, test, normal, depth, tiny)
+    err, err_noisy, hot = rel_l1(out, clean), rel_l1(test, clean), float(out[8:12, 8:12].max())
+    return dict(rel_err=err, rel_err_noisy=err_noisy, ratio=err / err_noisy, ratio_bar=0.75, hot_spot=hot,
+                hot_bar=5.0, loss=loss, within=err < 0.75 * err_noisy and hot > 5.0 and math.isfinite(loss))
+
+
+def denoise(dev, seed: int, root: Path, *, res: int = 64, spp_ref: int = 64, apply_sizes=(128, 512),
+            sdf_res: int = 32, cpu_nodes: int = 512, fg_res: int = 64, fg_spp: int = 16):
+    """The learned denoiser on renders lit by K5, on the run `endtask` left
+    in `root` (sdf-nerfacto at full width, the emitter pinned to K5, views
+    at res^2): `render rotate-light --denoise --denoise-mode learned` (the
+    fit on first use at the default DenoiserConfig: 3 views, fit_spp 8, 400
+    steps), then fit_scene_denoiser timed and one denoised view; the noisy,
+    bilateral and learned images' relative L1 against a spp_ref render of
+    the same view; apply_denoiser's ms at apply_sizes^2 (CUDA events); what
+    the fit converged to (the losses of the initial weights and of the
+    identity on its last pair, the pair's unchanged pixels, the centre
+    tap's weight, the depth guide's percentiles). Checks: the card's apply against the CPU's on the fitted weights (rtol
+    1e-4, atol 1e-5, TF32 off); a constant image back within 1e-5
+    relative; every output pixel inside its window's range; the
+    noise2noise contract from a torch.Generator on the card; the loss
+    finite. Then the card tools against the CPU: texture.bake_texture's
+    texels on the run's export (1e-6); convert_mesh_to_sdf at sdf_res^3 on
+    the GT mesh (the distance on cpu_nodes nodes, and the redistancing of
+    the card's signed grid, within 1e-5; signs equal); forward_gradient at
+    fg_res^2, spp fg_spp, along x (the report; the primal against a plain
+    render_spp on the same draws, within the EXR's half-float rounding;
+    every image finite). Returns (record, checks, the port's kernel
+    launches over the denoising path)."""
+    import numpy as np
+
+    from nerf_emitter_tpu_torch import kernels
+    from nerf_emitter_tpu_torch.configs.cli import load_config
+    from nerf_emitter_tpu_torch.engine.trainer import Trainer
+    from nerf_emitter_tpu_torch.exporter.marching_cubes import read_ply_or_obj
+    from nerf_emitter_tpu_torch.pipelines.nerf_emitter import fold_in
+    from nerf_emitter_tpu_torch.renderer import learned_denoise as ld
+    from nerf_emitter_tpu_torch.renderer.integrator import RenderConfig, draw_direct, render_spp
+    from nerf_emitter_tpu_torch.renderer.optimize import redistance
+    from nerf_emitter_tpu_torch.scripts import convert_mesh_to_sdf, forward_gradient, render, texture
+    from nerf_emitter_tpu_torch.utils import exr
+
+    cuda = dev.type == "cuda"
+    cfg = root / "runs" / "prod5f" / "sdf-nerfacto" / "config.json"
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    # the denoising path: the CLI, then the fit and one denoised view
+    kernels.reset_launches()
+    timed("cli_rotate_light_learned", lambda: render.main(
+        ["rotate-light", "--load-config", str(cfg), "--output-path", str(root / "denoised"), "--spp", "8",
+         "--n-frames", "1", "--denoise", "--denoise-mode", "learned", "--device", str(dev)]))
+    config = load_config(cfg)
+    config.device = str(dev)
+    trainer = Trainer(config)
+    trainer.setup()
+    trainer.load_checkpoint()
+    pipe, ds = trainer.pipeline, trainer.dataset
+    k5_lit = pipe._serving_use_nerf and not config.pipeline.distill_emitter
+    loss = timed("fit", lambda: pipe.fit_scene_denoiser(torch.Generator(device=dev).manual_seed(17), ds))
+    module, dcfg = pipe._denoiser_params, pipe._denoiser_config
+    view = 1
+
+    def view_gen():
+        return torch.Generator(device=dev).manual_seed(seed + 5)
+
+    learned = timed("denoised_view", lambda: pipe.render_camera_outputs(ds, view, view_gen(), spp=8,
+                                                                          denoise="learned"))
+    path_launches = dict(kernels.launches)
+    cli_frame = root / "denoised" / "frame_0000.exr"
+
+    # what the fit converged to: the loss of the initial weights and of the
+    # identity (all weight on the centre tap) on the pair of the fit's last
+    # step (step 399 takes pair 399 % 3 = 0: the first view's two renders,
+    # on the generators fit_scene_denoiser folds in), the share of that
+    # pair's pixels equal in both renders, and the centre tap's mean weight
+    # on the denoised view
+    g17 = torch.Generator(device=dev).manual_seed(17)
+    a, b = (pipe.render_camera_outputs(ds, 0, fold_in(g17, j), spp=8) for j in (0, 1))
+    with torch.no_grad():
+        init_loss = float(ld.denoiser_loss(ld.init_denoiser(fold_in(g17, 6), dcfg), a["rgb"], b["rgb"],
+                                           a["normal"], a["depth"], dcfg))
+        identity_loss = rel_l1(a["rgb"], b["rgb"]) + rel_l1(b["rgb"], a["rgb"])
+    equal_share = float((a["rgb"] == b["rgb"]).all(-1).float().mean())  # pixels the draws do not change
+    noisy = pipe.render_camera_outputs(ds, view, view_gen(), spp=8)
+    with torch.no_grad():
+        feats = ld._features(noisy["rgb"], noisy["normal"], noisy["depth"])
+        weights = module(feats)
+    centre_weight = float(weights[..., weights.shape[-1] // 2].mean())
+    # the depth guide: its 5th and 95th percentiles, the share of pixels at
+    # the 5th's depth, and the normalised feature's largest magnitude
+    depth_guide = dict(p5=float(ld._percentile(noisy["depth"], 5.0)), p95=float(ld._percentile(noisy["depth"], 95.0)),
+                       share_at_p5=float((noisy["depth"] == ld._percentile(noisy["depth"], 5.0)).float().mean()),
+                       feature_max_abs=float(feats[..., 7].abs().max()))
+
+    bilateral = pipe.render_camera_outputs(ds, view, view_gen(), spp=8, denoise="bilateral")
+    ref = pipe.render_camera_outputs(ds, view, torch.Generator(device=dev).manual_seed(seed + 6), spp=spp_ref)
+    errors = {k: rel_l1(v["rgb"], ref["rgb"]) for k, v in
+              (("noisy", noisy), ("bilateral", bilateral), ("learned", learned))}
+
+    # apply_denoiser alone, on HDR-like inputs
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    apply_ms, inputs = {}, {}
+    for size in apply_sizes:
+        rgb = torch.exp(torch.randn((size, size, 3), generator=g, device=dev))
+        normal = torch.nn.functional.normalize(torch.randn((size, size, 3), generator=g, device=dev), dim=-1)
+        depth = 1.0 + torch.rand((size, size, 1), generator=g, device=dev)
+        inputs[size] = (rgb, normal, depth)
+        with torch.no_grad():
+            apply_ms[size] = cuda_ms(lambda: ld.apply_denoiser(module, rgb, normal, depth, dcfg), 10) if cuda else None
+    rgb, normal, depth = inputs[apply_sizes[0]]
+    with torch.no_grad():
+        on_card = ld.apply_denoiser(module, rgb, normal, depth, dcfg)
+        on_cpu = ld.apply_denoiser(copy.deepcopy(module).cpu(), rgb.cpu(), normal.cpu(), depth.cpu(), dcfg)
+        const = ld.apply_denoiser(module, torch.full_like(rgb, 3.7), normal, depth, dcfg)
+        win = ld._window_stack(rgb, dcfg.radius)
+    lo, hi = win.amin(dim=2), win.amax(dim=2)
+    slack = 1e-5 * win.abs().amax(dim=2)
+    inside = bool(((on_card >= lo - slack) & (on_card <= hi + slack)).all())
+    const_err = float((const / 3.7 - 1.0).abs().max())
+
+    # the card tools against the CPU
+    mesh = root / "mesh_baseline"
+    verts, faces = texture.read_obj(mesh / "mesh.obj")
+    uvs, tex_size = texture.grid_atlas_uvs(len(faces), 4)
+    albedo = np.load(mesh / "albedo.npy")
+    tex_card = timed("texture_bake", lambda: texture.bake_texture(verts, faces, uvs, tex_size,
+                                                                   texture.volume_sampler(albedo, dev), 4))
+    tex_cpu = texture.bake_texture(verts, faces, uvs, tex_size, texture.volume_sampler(albedo, "cpu"), 4)
+    timed("texture_cli", lambda: texture.main(
+        ["--input-mesh", str(mesh / "mesh.obj"), "--albedo-volume", str(mesh / "albedo.npy"), "--roughness-volume",
+         str(mesh / "roughness.npy"), "--output-dir", str(root / "textured"), "--device", str(dev)]))
+    tex_files = sorted(p.name for p in (root / "textured").iterdir())
+
+    gt_v, gt_f = read_ply_or_obj(root / "gt_mesh" / "mesh.ply")
+    sdf_card = timed("convert_mesh_to_sdf", lambda: convert_mesh_to_sdf.main(
+        [str(root / "gt_mesh" / "mesh.ply"), "--resolution", str(sdf_res), "--out", str(root / "gt_sdf_32.npy"),
+         "--device", str(dev)]))
+    xs = np.linspace(0, 1, sdf_res, dtype=np.float32)
+    nodes = np.stack(np.meshgrid(xs, xs, xs, indexing="ij"), -1).reshape(-1, 3)
+    tri = np.asarray(gt_v[gt_f], np.float32)
+    dist_card = convert_mesh_to_sdf.point_triangle_distance_batch(torch.as_tensor(nodes, device=dev),
+                                                                  torch.as_tensor(tri, device=dev))
+    pick = np.random.default_rng(seed).choice(len(nodes), cpu_nodes, replace=False)
+    dist_cpu = convert_mesh_to_sdf.point_triangle_distance_batch(torch.as_tensor(nodes[pick]), torch.as_tensor(tri))
+    sign = torch.as_tensor(convert_mesh_to_sdf.sign_by_parity(nodes, gt_v, gt_f), device=dev)
+    signed = (sign * dist_card).reshape(sdf_res, sdf_res, sdf_res, 1)
+    red_card = redistance(signed, n_iters=2 * sdf_res).cpu()
+    red_cpu = redistance(signed.cpu(), n_iters=2 * sdf_res)
+
+    fg_dir = root / "forward_gradient"
+    report = timed("forward_gradient", lambda: forward_gradient.main(
+        ["--axis", "x", "--resolution", str(fg_res), "--spp", str(fg_spp), "--out", str(fg_dir), "--device",
+         str(dev)]))
+    # the primal against a plain render of the same scene on the CLI's draws
+    # (a generator seeded 0); the EXRs hold half floats
+    scene, o, d = forward_gradient.setup(fg_res, None, dev)
+    draws = draw_direct(scene, o.shape[0], torch.Generator(device=dev).manual_seed(0), dev, lead=(fg_spp,))
+    with torch.no_grad():
+        plain = render_spp(forward_gradient.apply_param(scene, "x", torch.zeros((), device=dev)), o, d, fg_spp,
+                           draws=draws, config=RenderConfig(), remat=False)["rgb"].reshape(fg_res, fg_res, 3)
+    fg_images = {n: exr.read_exr(fg_dir / f"{n}.exr") for n in ("primal", "forward_ad", "finite_diff")}
+    del trainer, pipe
+    if cuda:
+        torch.cuda.empty_cache()
+
+    checks = {
+        "k5_lit": dict(within=bool(k5_lit)),
+        "fit_loss_finite": dict(loss=loss, within=math.isfinite(loss)),
+        "cli_frame_written": dict(within=cli_frame.exists() and bool(np.isfinite(exr.read_exr(cli_frame)).all())),
+        "learned_view_finite": dict(within=all(bool(torch.isfinite(v).all()) for v in learned.values())),
+        "apply_card_vs_cpu": close(on_card.cpu(), on_cpu, rtol=1e-4, atol=1e-5),
+        "constant_image": dict(max_rel_err=const_err, bar=1e-5, within=const_err <= 1e-5),
+        "inside_window_range": dict(within=inside),
+        "noise2noise_contract": noise2noise_contract(dev, seed),
+        "texture_card_vs_cpu": close(torch.as_tensor(tex_card), torch.as_tensor(tex_cpu), rtol=0.0, atol=1e-6)
+        | dict(cli_files=tex_files),
+        "mesh_distance_card_vs_cpu": close(dist_card[torch.as_tensor(pick, device=dev)].cpu(), dist_cpu, rtol=0.0,
+                                           atol=1e-5) | dict(nodes=cpu_nodes, of=len(nodes)),
+        "redistance_card_vs_cpu": close(red_card, red_cpu, rtol=0.0, atol=1e-5)
+        | dict(signs_equal=bool(torch.equal(torch.sign(red_card), torch.sign(red_cpu)))),
+        "convert_cli_equals_parts": dict(within=bool(np.array_equal(sdf_card, red_card.numpy()))),
+        "forward_gradient_primal_vs_plain": close(torch.as_tensor(fg_images["primal"]), plain.cpu(), rtol=1e-3,
+                                                  atol=1e-6),
+        "forward_gradient_finite": dict(within=all(bool(np.isfinite(v).all()) for v in fg_images.values())),
+    }
+    checks["redistance_card_vs_cpu"]["within"] &= checks["redistance_card_vs_cpu"]["signs_equal"]
+    rec = dict(res=res, fit_views=3, fit_spp=8, fit_steps=dcfg.fit_steps, config=dataclasses.asdict(dcfg),
+               fit_s=secs["fit"], fit_loss=loss, init_loss=init_loss, identity_loss=identity_loss,
+               pair_equal_share=equal_share, centre_tap_weight=centre_weight, depth_guide=depth_guide, seconds=secs,
+               rel_l1_vs_spp64=errors,
+               spp_ref=spp_ref,
+               apply_ms={f"{k}^2": v for k, v in apply_ms.items()}, k5_launches=path_launches.get("mega_pipeline", 0),
+               launches=path_launches, forward_gradient=dict(res=fg_res, spp=fg_spp, report=report),
+               texture=dict(faces=len(faces), tex_size=tex_size),
+               convert_mesh_to_sdf=dict(res=sdf_res, faces=len(gt_f), inside_nodes=int((sdf_card < 0).sum())),
+               reduced=[f"views at {res}^2 (of 128^2), the endtask phase's run (40 + 4 steps of 2,320)",
+                        f"the mesh-to-SDF distance held against the CPU on {cpu_nodes} of {len(nodes)} nodes",
+                        f"convert_mesh_to_sdf at {sdf_res}^3 (of 128^3)"])
     return rec, checks, path_launches
 
 
@@ -954,6 +1197,7 @@ def main() -> int:
     # f32 comparisons on the card run in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
@@ -1962,19 +2206,35 @@ def main() -> int:
     # takeover's backward, K1), eval (NVS and relit), every render
     # subcommand, the exporter and chamfer, held against the CPU and float64
     t_phase = time.perf_counter()
-    end_rec, end_checks, end_launches = endtask(dev, args.seed)
-    emit(dict(phase="endtask", **end_rec, checks=end_checks, phase_s=time.perf_counter() - t_phase))
-    bad = [k for k, c in end_checks.items() if not c["within"]]
+    with tempfile.TemporaryDirectory() as end_root:
+        end_rec, end_checks, end_launches = endtask(dev, args.seed, root=end_root)
+        emit(dict(phase="endtask", **end_rec, checks=end_checks, phase_s=time.perf_counter() - t_phase))
+        bad = [k for k, c in end_checks.items() if not c["within"]]
+        if bad:
+            raise AssertionError(f"endtask: failed checks {bad}: {end_checks}")
+        if end_launches.get("mega_pipeline", 0) < 1 or end_launches.get("fused_density", 0) < 1:
+            raise AssertionError(f"the end-task path did not run K5 and K1: {end_launches}")
+
+        # ---- phase 13d: the learned denoiser (`denoise`) on the endtask
+        # run's K5-lit renders: the fit through the render CLI and through
+        # fit_scene_denoiser, a denoised view, apply timed, held against the
+        # CPU; then the card tools (texture, convert_mesh_to_sdf,
+        # forward_gradient) against the CPU
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        den_rec, den_checks, den_launches = denoise(dev, args.seed, Path(end_root))
+        emit(dict(phase="denoise", **den_rec, checks=den_checks, phase_s=time.perf_counter() - t_phase))
+    bad = [k for k, c in den_checks.items() if not c["within"]]
     if bad:
-        raise AssertionError(f"endtask: failed checks {bad}: {end_checks}")
-    if end_launches.get("mega_pipeline", 0) < 1 or end_launches.get("fused_density", 0) < 1:
-        raise AssertionError(f"the end-task path did not run K5 and K1: {end_launches}")
+        raise AssertionError(f"denoise: failed checks {bad}: {den_checks}")
+    if den_launches.get("mega_pipeline", 0) < 1:
+        raise AssertionError(f"the denoising path did not run K5: {den_launches}")
 
     # ---- phase 14: the kernels line. K5 carries the query (phase 3), the
     # other schedules (phase 7), the turntable (phase 9), the
     # distillation's teacher (phase 11), the trained field's emitter
-    # (phase 13), the train CLI's run (phase 13b) and the end-task tools
-    # (phase 13c); K3 and K4 the
+    # (phase 13), the train CLI's run (phase 13b), the end-task tools
+    # (phase 13c) and the learned denoiser's renders (phase 13d); K3 and K4 the
     # two-kernel query (phases 3 and 13); K2 the
     # staged query; K1 the backward (phase 4), the staged query and the
     # K5-lit takeovers (phases 12c and 13c); the
@@ -1983,7 +2243,7 @@ def main() -> int:
     # runs of its own paths.
     # `launches` sums a kernel's paths; `launches_by_path` splits them.
     path_of = {"mega_pipeline": ["query", "schedules", "turntable", "distill", "render", "takeover", "train",
-                                 "pipeline", "endtask"],
+                                 "pipeline", "endtask", "denoise"],
                "proposal": ["two_kernel_query", "train"], "field_mlp": ["field_mlp"],
                "field_composite": ["two_kernel_query", "train"],
                "fused_density": ["backward", "staged_query", "takeover", "endtask"],
@@ -1996,7 +2256,7 @@ def main() -> int:
               "staged_query": staged_launches, "field_mlp": mlp_launches, "schedules": sched_launches,
               "turntable": tt_launches, "distill": distill_launches, "render": render_launches,
               "takeover": take_launches, "train": train_k5 | train_two, "pipeline": pipe_launches,
-              "endtask": end_launches,
+              "endtask": end_launches, "denoise": den_launches,
               **script_launches}
 
     def by_path(name):
@@ -2012,6 +2272,7 @@ def main() -> int:
     idle = [k["name"] for k in line["kernels"] if min(k["launches_by_path"].values()) < 1]
     if idle:
         raise AssertionError(f"kernels not launched on their paths: {idle}")
+    emit(dict(phase="total", script_s=time.perf_counter() - t_script, card=card))
     print(card, flush=True)
     emit(line)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

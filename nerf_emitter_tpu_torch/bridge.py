@@ -9,7 +9,8 @@ Raw parameters keep their flax names and layout: the hash tables
 `field/hash_table` and `proposal_{0,1}/hash_table` (T, F), and the pose
 deltas `camera_opt_deltas` and `rotation_opt_deltas` (n, 6). The distilled
 student's tree (`hidden_{i}`, `out`) loads into `EmitterLightField` the
-same way. `load_sdf_scene` carries an SDF scene's grids, envmap and
+same way, and `load_denoiser_params` the learned denoiser's conv kernels
+(HWIO to OIHW). `load_sdf_scene` carries an SDF scene's grids, envmap and
 guiding mixture; `load_train_state` a NeRF train state (the parameters and
 each group's Adam moments) and `load_sdf_opt_state` a takeover state (the
 scene, the step, the optimiser's moments and the running means), so that a
@@ -80,6 +81,30 @@ def load_flax_params(model: nn.Module, tree: Mapping) -> nn.Module:
                 )
             param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
     return model
+
+
+def load_denoiser_params(module: nn.Module, tree: Mapping) -> nn.Module:
+    """Copy a flax KernelPredictor tree (`conv_{i}` and `head`, each a HWIO
+    `kernel` and a `bias`, with or without the top-level "params" key) into
+    the port's `renderer.learned_denoise.KernelPredictor`, in place: the
+    kernels become OIHW. Raises KeyError on a missing or extra layer and
+    ValueError on a shape mismatch."""
+    if "params" in tree and len(tree) == 1:
+        tree = tree["params"]
+    layers = {f"conv_{i}": conv for i, conv in enumerate(module.convs)} | {"head": module.head}
+    if set(tree) != set(layers):
+        raise KeyError(f"flax tree mismatch: missing {sorted(set(layers) - set(tree))}, "
+                       f"extra {sorted(set(tree) - set(layers))}")
+    with torch.no_grad():
+        for name, conv in layers.items():
+            kernel = np.asarray(tree[name]["kernel"], np.float32).transpose(3, 2, 0, 1)
+            bias = np.array(tree[name]["bias"], np.float32)
+            if kernel.shape != tuple(conv.weight.shape) or bias.shape != tuple(conv.bias.shape):
+                raise ValueError(f"{name}: flax kernel {kernel.shape} / bias {bias.shape} do not fit "
+                                 f"{tuple(conv.weight.shape)} / {tuple(conv.bias.shape)}")
+            conv.weight.copy_(torch.from_numpy(kernel.copy()))
+            conv.bias.copy_(torch.from_numpy(bias))
+    return module
 
 
 def _tensor(x, device) -> torch.Tensor:

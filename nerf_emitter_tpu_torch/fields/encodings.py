@@ -135,6 +135,15 @@ def sh_encode(directions: torch.Tensor, degree: int = 4) -> torch.Tensor:
     return torch.stack(comps, dim=-1)
 
 
+def sh_dim(degree: int) -> int:
+    return degree**2
+
+
+def nerf_encode_dim(in_dim: int, num_frequencies: int, include_input: bool = True) -> int:
+    """nerf_encode's output width."""
+    return in_dim * (2 * num_frequencies + (1 if include_input else 0))
+
+
 def nerf_encode(
     x: torch.Tensor,
     num_frequencies: int = 10,

@@ -45,6 +45,16 @@ def composite_accumulation(weights: torch.Tensor) -> torch.Tensor:
     return torch.sum(weights, dim=-1, keepdim=True)
 
 
+def composite_normals(normals: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """(..., S, 3), (..., S) -> (..., 3)."""
+    return torch.sum(weights[..., None] * normals, dim=-2)
+
+
+def composite_generic(values: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """values (..., S, C), weights (..., S) -> (..., C)."""
+    return torch.sum(weights[..., None] * values, dim=-2)
+
+
 def composite_depth(
     weights: torch.Tensor,
     starts: torch.Tensor,

@@ -37,6 +37,7 @@ from ..ops.fused_field import named_params
 from ..renderer.emitters import VMFMixture
 from ..renderer.grid3d import sphere_sdf_grid, upsample_grid
 from ..renderer.integrator import RenderConfig, render_spp
+from ..renderer.learned_denoise import DenoiserConfig, apply_denoiser, fit_denoiser
 from ..renderer.optimize import SdfOptConfig
 from ..renderer.scene import SdfScene
 from ..renderer.sensors import camera_rays_in_render_space
@@ -261,6 +262,9 @@ class NerfEmitterPipeline:
                                         camera_rot_ids=dataset.rotation_ids)
         # the SDF side, from the takeover on
         self.sdf_state: Optional[SdfOptState] = None
+        # the learned denoiser, fitted on first use (fit_scene_denoiser)
+        self._denoiser_params = None
+        self._denoiser_config: Optional[DenoiserConfig] = None
         self.sdf_tx = None
         self.sdf_step_fn = None
         self.occlusion = None
@@ -553,13 +557,13 @@ class NerfEmitterPipeline:
         cache) unless an envmap relights it. spp is rendered in
         power-of-two batches of at most spp_per_batch (divide_spp), without
         the warp (serving needs no gradient). denoise True or 'bilateral':
-        the joint bilateral filter; 'learned' is not ported (ROADMAP.md,
-        Queue 1 item 8)."""
+        the joint bilateral filter; 'learned': the per-scene learned
+        denoiser (renderer/learned_denoise.py), fitted on first use by
+        fit_scene_denoiser from a generator seeded 17 and applied with the
+        first spp batch's normal and depth."""
         cams = dataset.cameras
         if self.sdf_state is None:
             return self.render_fn(cams, cam_index, cams.height, cams.width)
-        if denoise == "learned":
-            raise NotImplementedError("the learned denoiser is not ported yet (ROADMAP.md, Queue 1 item 8)")
         h, w = cams.height, cams.width
         rot_ids = dataset.rotation_ids
         rid = rot_ids[cam_index] if (self.rotater is not None and rot_ids is not None) else None
@@ -577,12 +581,33 @@ class NerfEmitterPipeline:
             rgb = part if rgb is None else rgb + part
         rgb = rgb.reshape(h, w, 3)
         depth, normal = first["depth"].reshape(h, w, 1), first["normal"].reshape(h, w, 3)
-        if denoise:
+        if denoise == "learned":
+            if self._denoiser_params is None:
+                self.fit_scene_denoiser(torch.Generator(device=self.device).manual_seed(17), dataset)
+            rgb = apply_denoiser(self._denoiser_params, rgb, normal, depth, self._denoiser_config)
+        elif denoise:
             rgb = bilateral_denoise(rgb, normal=normal, depth=depth)
         return {"rgb": rgb, "depth": depth, "normal": normal, "accumulation": first["soft_mask"].reshape(h, w, 1)}
 
-    def fit_scene_denoiser(self, *args, **kwargs):
-        raise NotImplementedError("the learned denoiser is not ported yet (ROADMAP.md, Queue 1 item 8)")
+    def fit_scene_denoiser(self, generator: torch.Generator, dataset: ImageDataset, n_views: int = 3,
+                           fit_spp: int = 8, config: Optional[DenoiserConfig] = None) -> float:
+        """Noise2noise fit of the per-scene learned denoiser: each of n_views
+        training views rendered twice at fit_spp (render_camera_outputs
+        without denoising) on two independent generators folded in from
+        `generator`, the two renders each other's targets, so no clean
+        reference is needed. Caches the predictor and its config on the
+        pipeline; returns the final fit loss."""
+        config = config or DenoiserConfig()
+        n_cams = dataset.cameras.camera_to_worlds.shape[0]
+        pairs = []
+        for i in range(n_views):
+            cam = int(i * max(1, n_cams // n_views)) % n_cams
+            a, b = (self.render_camera_outputs(dataset, cam, fold_in(generator, 2 * i + j), spp=fit_spp,
+                                               denoise=False) for j in (0, 1))
+            pairs.append((a["rgb"], b["rgb"], a["normal"], a["depth"]))
+        self._denoiser_params, loss = fit_denoiser(fold_in(generator, 2 * n_views), pairs, config)
+        self._denoiser_config = config
+        return loss
 
     def get_average_eval_image_metrics(self, dataset: ImageDataset, generator: torch.Generator, spp: int = 64,
                                        get_std: bool = False) -> dict:

@@ -17,8 +17,10 @@ in-process through the port's tools, every stage timed:
    (prod5_dl) turns the cache on and starts from the baseline's step-2,000
    checkpoint with `--resume --load-nerf-only --override-start-step 2000`
    (a baseline arm of this `--out` must have run first);
-5. eval at spp 32 (NVS), then relit (`--emitter-path env_relit.exr
-   --test-data <relit scene>`);
+5. eval at spp 32 (NVS), the same views denoised by the learned denoiser
+   fitted on the training views (`eval_nvs_learned`; the round has no
+   such number), then relit (`--emitter-path env_relit.exr --test-data
+   <relit scene>`);
 6. the exporter at `--mesh-res` from the run, chamfer against the
    ground-truth mesh, and the recovered albedo against gt_albedo.npy near
    the surface (`albedo_against_gt`; the round reported no such number).
@@ -153,6 +155,32 @@ def scene_frames(scene: Path, data_scale: float, render_scale: float) -> dict:
                 object_aabb_render_unit=to_render(box).tolist())
 
 
+def eval_nvs_learned(cfg: Path, dev: str, spp: int) -> dict:
+    """eval.py's NVS metrics (the same draws: a generator seeded 0) with
+    every view denoised by the learned denoiser, fitted first on the
+    training views at the default DenoiserConfig (fit_scene_denoiser from
+    a generator seeded 17)."""
+    from ..configs.cli import load_config
+    from ..engine.train_loop import eval_image_metrics
+    from ..engine.trainer import Trainer
+
+    config = load_config(cfg)
+    config.device = dev
+    trainer = Trainer(config)
+    trainer.setup()
+    trainer.load_checkpoint()
+    pipe, ds = trainer.pipeline, trainer.eval_dataset or trainer.dataset
+    loss = pipe.fit_scene_denoiser(torch.Generator(device=dev).manual_seed(17), trainer.dataset)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows: dict[str, list] = {}
+    for i in range(ds.images.shape[0]):
+        out = pipe.render_camera_outputs(ds, i, gen, spp=spp, denoise="learned")
+        for name, v in eval_image_metrics(out["rgb"], ds.images[i], is_hdr=ds.is_hdr).items():
+            rows.setdefault(name, []).append(float(v))
+    return {name: float(np.mean(v)) for name, v in rows.items()} | {
+        f"{name}_std": float(np.std(v)) for name, v in rows.items()} | {"fit_loss": loss}
+
+
 def run_arm(run: Run, arm: str, out: Path, scene: Path, relit: Path, env_relit: Path, gt_mesh: Path, args,
             dev: str, extra: list) -> dict:
     ref = REFERENCE[arm]
@@ -196,6 +224,7 @@ def run_arm(run: Run, arm: str, out: Path, scene: Path, relit: Path, env_relit: 
     nvs = run.stage(f"{arm}/eval_nvs", lambda: eval_cli.main([
         "--load-config", str(cfg), "--spp", "32", "--output-path", str(out / f"e2e_metrics_{arm}.json"),
         "--device", dev]))
+    nvs_learned = run.stage(f"{arm}/eval_nvs_learned", lambda: eval_nvs_learned(cfg, dev, 32))
     rel = run.stage(f"{arm}/eval_relight", lambda: eval_cli.main([
         "--load-config", str(cfg), "--emitter-path", str(env_relit), "--test-data", str(relit), "--spp", "32",
         "--output-path", str(out / f"relight_metrics_{arm}.json"), "--device", dev]))
@@ -208,7 +237,8 @@ def run_arm(run: Run, arm: str, out: Path, scene: Path, relit: Path, env_relit: 
         "--output-path", str(out / f"chamfer_{arm}.json"), "--device", dev]))
     albedo = albedo_against_gt(np.load(mesh / "albedo.npy"), np.load(scene / "gt_albedo.npy"),
                                np.load(scene / "gt_sdf.npy"))
-    return dict(arm=arm, experiment=exp, nvs=nvs["results"], relight=rel["results"], chamfer=ch["chamfer"],
+    return dict(arm=arm, experiment=exp, nvs=nvs["results"], nvs_learned=nvs_learned, relight=rel["results"],
+                chamfer=ch["chamfer"],
                 albedo_vs_gt=albedo, reference=ref, seconds={k: v["seconds"] for k, v in run.lines.items()})
 
 

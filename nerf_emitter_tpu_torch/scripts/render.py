@@ -23,9 +23,11 @@ nerf_emitter_tpu/scripts/render.py).
 HDR frames are written as EXR, LDR ones as PNG (utils/video.write_png);
 `--video` also muxes the sRGB frames into an uncompressed AVI
 (utils/video.write_avi). The frames for the video are clipped to [0, 1]
-before 8-bit rounding. `--denoise` applies the joint bilateral filter;
-`--denoise-mode learned` raises (the learned denoiser is not ported:
-ROADMAP.md, Queue 1 item 8).
+before 8-bit rounding. `--denoise` applies the joint bilateral filter, or
+with `--denoise-mode learned` the per-scene learned denoiser
+(renderer/learned_denoise.py), fitted on first use on noise2noise pairs of
+training views (NerfEmitterPipeline.fit_scene_denoiser, from a generator
+seeded 17).
 """
 
 from __future__ import annotations
@@ -136,12 +138,11 @@ def cmd_rotate_light(args):
     pipeline = trainer.pipeline
     if pipeline.sdf_state is None:
         raise RuntimeError("rotate-light needs an SDF checkpoint")
-    if args.denoise == "learned":
-        pipeline.fit_scene_denoiser()  # not ported: raises (ROADMAP.md, Queue 1 item 8)
     ds = trainer.dataset
     cams = ds.cameras
     h, w = cams.height, cams.width
     from ..renderer.integrator import render_spp
+    from ..renderer.learned_denoise import apply_denoiser
     from ..renderer.sensors import camera_rays_in_render_space
     from ..renderer.spp_schedule import bilateral_denoise
 
@@ -156,9 +157,13 @@ def cmd_rotate_light(args):
         emitter = rotated_emitter(base_emitter, 2.0 * math.pi * fi / args.n_frames)
         out = render_spp(pipeline.sdf_state.scene, o, d, args.spp, gen, emitter_fn=emitter, config=serve_cfg,
                          remat=False)
-        rgb = out["rgb"].reshape(h, w, 3)
-        if args.denoise:
-            rgb = bilateral_denoise(rgb, normal=out["normal"].reshape(h, w, 3), depth=out["depth"].reshape(h, w, 1))
+        rgb, normal, depth = out["rgb"].reshape(h, w, 3), out["normal"].reshape(h, w, 3), out["depth"].reshape(h, w, 1)
+        if args.denoise == "learned":
+            if pipeline._denoiser_params is None:
+                pipeline.fit_scene_denoiser(torch.Generator(device=trainer.device).manual_seed(17), ds)
+            rgb = apply_denoiser(pipeline._denoiser_params, rgb, normal, depth, pipeline._denoiser_config)
+        elif args.denoise:
+            rgb = bilateral_denoise(rgb, normal=normal, depth=depth)
         frames.append(_save_image(out_dir / f"frame_{fi:04d}", rgb, ds.is_hdr))
     print(f"wrote {args.n_frames} relit frames to {out_dir}")
     _maybe_mux(args, frames, out_dir, "rotate_light")
@@ -392,7 +397,7 @@ def main(argv=None) -> None:
         sub.add_argument("--spp-per-batch", type=int, default=64, help="spp per render call (divide_spp)")
         sub.add_argument("--denoise", action="store_true", help="denoise the final renders")
         sub.add_argument("--denoise-mode", choices=("bilateral", "learned"), default="bilateral",
-                         help="bilateral: the joint bilateral filter; learned: not ported (raises)")
+                         help="bilateral: the joint bilateral filter; learned: the per-scene learned denoiser")
         sub.add_argument("--device", default="cuda")
         sub.set_defaults(fn=fn)
     args = ap.parse_args(argv)

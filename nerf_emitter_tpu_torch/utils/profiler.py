@@ -1,12 +1,13 @@
-"""Wall-clock timing of host functions and blocks (port of the timing part
+"""Wall-clock timing of host functions and blocks, and device traces (port
 of nerf_emitter_tpu/utils/profiler.py): per-name call counts and totals,
 printed as means at exit, on standard error (standard output's last line
-stays a program's own: `chip_smoke.py`'s result, say).
+stays a program's own: `chip_smoke.py`'s result, say); `trace` writes a
+torch.profiler Chrome trace where the reference writes a jax.profiler one.
 
 The clock does not wait for the device: CUDA work is queued
 asynchronously, so a block's time is its host time, plus device time only
 where the block itself waits for the device (reading a value, say). For
-device time use `scripts/profiling.device_trace` or CUDA events.
+device time use `trace`, `scripts/profiling.device_trace` or CUDA events.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import sys
 import time
 from collections import defaultdict
 from contextlib import contextmanager
+from pathlib import Path
 from typing import Optional
 
 _STATS: dict[str, list] = defaultdict(lambda: [0, 0.0])  # name -> [count, total seconds]
@@ -64,6 +66,26 @@ def time_block(name: str):
     finally:
         if _ENABLED:
             _record(name, time.perf_counter() - t0)
+
+
+@contextmanager
+def trace(log_dir, enabled: bool = True):
+    """Profile the block with torch.profiler (the CPU, and CUDA where torch
+    sees a card) and write its Chrome trace to `log_dir`/trace.json (view
+    it in Perfetto or chrome://tracing)."""
+    if not enabled:
+        yield
+        return
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(str(log_dir / "trace.json"))
 
 
 def summary() -> str:

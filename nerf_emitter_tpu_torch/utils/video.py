@@ -10,7 +10,8 @@ each frame as an uncompressed 24-bit bottom-up DIB (fourcc `DIB `, chunks
 `00db`): the stdlib and numpy suffice, every mainstream player reads it,
 and a frame reads back bit for bit. The files are larger than MJPEG's, by
 about the JPEG's compression ratio. The LDR frames the render CLI saves are
-PNGs from `write_png` (stdlib zlib); `read_png` reads them back.
+PNGs from `write_png` (stdlib zlib); `read_png` reads them back, and the
+8-bit PNGs other writers (PIL, OpenCV) make, whose rows are filtered.
 """
 
 from __future__ import annotations
@@ -100,10 +101,45 @@ def write_png(path, image: np.ndarray) -> Path:
     return path
 
 
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)
+    of (H, 1 + row bytes) scanlines -> (H, row bytes) uint8."""
+    h, n = raw.shape[0], raw.shape[1] - 1
+    out = np.zeros((h, n), np.int64)
+    prior = np.zeros(n, np.int64)
+    for y in range(h):
+        kind, line = raw[y, 0], raw[y, 1:].astype(np.int64)
+        if kind == 0:
+            row = line
+        elif kind == 1:
+            row = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) % 256
+        elif kind == 2:
+            row = (line + prior) % 256
+        elif kind in (3, 4):
+            row = line.copy()
+            left = np.zeros(bpp, np.int64)
+            up_left = np.zeros(bpp, np.int64)
+            for x in range(0, n, bpp):
+                up = prior[x:x + bpp]
+                pred = (left + up) // 2 if kind == 3 else _paeth(left, up, up_left)
+                left = row[x:x + bpp] = (line[x:x + bpp] + pred) % 256
+                up_left = up
+        else:
+            raise ValueError(f"unknown PNG row filter {kind}")
+        out[y] = prior = row
+    return out.astype(np.uint8)
+
+
 def read_png(path) -> np.ndarray:
-    """A PNG as write_png writes it (8-bit, non-interlaced, grey, grey-alpha,
-    RGB or RGBA, every row filter 0) -> (H, W, C) uint8. Other PNGs raise
-    ValueError."""
+    """An 8-bit, non-interlaced grey, grey-alpha, RGB or RGBA PNG (any row
+    filters: write_png's, PIL's or OpenCV's) -> (H, W, C) uint8. Other PNGs
+    (palette, 16-bit, interlaced) raise ValueError."""
     data = Path(path).read_bytes()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG")
@@ -126,6 +162,5 @@ def read_png(path) -> np.ndarray:
                          f"colour type {color}, interlace {interlace})")
     c = _PNG_CHANNELS[color]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
-    if raw[:, 0].any():
-        raise ValueError(f"{path}: only PNGs with unfiltered rows (write_png's) are read")
-    return raw[:, 1:].reshape(h, w, c).copy()
+    rows = raw[:, 1:] if not raw[:, 0].any() else _unfilter(raw, c)
+    return rows.reshape(h, w, c).copy()

@@ -232,8 +232,9 @@ def test_avi_reads_back(tmp_path, width):
 
 @pytest.mark.parametrize("channels", [1, 2, 3, 4])
 def test_png_round_trip(tmp_path, channels):
-    """write_png's files read back by read_png and by PIL; a PNG with a
-    filtered row, which write_png never writes, raises."""
+    """write_png's files read back by read_png and by PIL; a PNG whose rows
+    are 'sub'-filtered (write_png never filters) reads back as PIL reads
+    it, and one with an unknown row filter raises."""
     import zlib
 
     from PIL import Image
@@ -248,5 +249,9 @@ def test_png_round_trip(tmp_path, channels):
     ihdr = data[8:8 + 25]
     (tmp_path / "f.png").write_bytes(data[:8] + ihdr + video._png_chunk(b"IDAT", zlib.compress(raw))
                                      + video._png_chunk(b"IEND", b""))
-    with pytest.raises(ValueError, match="unfiltered"):
-        video.read_png(tmp_path / "f.png")
+    np.testing.assert_array_equal(video.read_png(tmp_path / "f.png"),
+                                  np.asarray(Image.open(tmp_path / "f.png")).reshape(img.shape))
+    (tmp_path / "u.png").write_bytes(data[:8] + ihdr + video._png_chunk(b"IDAT", zlib.compress(raw.replace(
+        b"\x01", b"\x05", 1))) + video._png_chunk(b"IEND", b""))
+    with pytest.raises(ValueError, match="unknown PNG row filter"):
+        video.read_png(tmp_path / "u.png")

@@ -2,8 +2,8 @@
 sdf-nerfacto (2 NeRF steps, 2 takeover steps, vMF guiding, the emitter the
 model's forward) on a generated 10^2 scene: the relighting eval swaps the
 emitter after the restore and leaves config.json as it was; every render
-subcommand writes its files (`--video` an AVI), the learned denoiser
-raises; the exporter restores the run's scene, or the template's for a
+subcommand writes its files (`--video` an AVI), also with the learned
+denoiser; the exporter restores the run's scene, or the template's for a
 pretrain-only run. Against the JAX package: the rotate-light rotation and
 the keyframe slerp. Every entry point needs a card unless told
 `--device cpu`."""
@@ -123,11 +123,21 @@ def test_camera_path_file_keyframes(run, tmp_path):
 
 
 @pytest.mark.parametrize("sub", ["eval", "rotate-light"])
-def test_learned_denoiser_raises(run, tmp_path, sub):
+def test_learned_denoiser_writes_its_files(run, tmp_path, monkeypatch, sub):
+    """--denoise-mode learned fits the scene's denoiser on first use
+    (DenoiserConfig cut to 20 steps of a narrow predictor for the CPU) and
+    writes the subcommand's frames, finite."""
+    from nerf_emitter_tpu_torch.pipelines import nerf_emitter as tne
+    from nerf_emitter_tpu_torch.renderer.learned_denoise import DenoiserConfig
+
+    monkeypatch.setattr(tne, "DenoiserConfig", lambda: DenoiserConfig(radius=1, hidden=8, depth=2, fit_steps=20))
     _, cfg, _ = run
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        render.main([sub, "--load-config", str(cfg), "--output-path", str(tmp_path), "--spp", "1", "--n-frames", "1",
-                     "--denoise", "--denoise-mode", "learned", "--device", "cpu"])
+    render.main([sub, "--load-config", str(cfg), "--output-path", str(tmp_path / "out"), "--spp", "1", "--n-frames",
+                 "1", "--denoise", "--denoise-mode", "learned", "--device", "cpu"])
+    want = SUBCOMMANDS["eval"][1] if sub == "eval" else ["frame_0000.exr"]
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == want
+    frame = exr.read_exr(tmp_path / "out" / want[-1])
+    assert frame.shape == (10, 10, 3) and np.isfinite(frame).all()
 
 
 def test_rotate_light_rotation_matches_the_reference():
