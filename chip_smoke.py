@@ -31,9 +31,14 @@ tools as round 5's protocol drives them, cut (gen_data's scene and its
 relit twin, a short sdf-nerfacto run lit by K5, eval, every render
 subcommand, the exporter and chamfer); then the learned denoiser fitted on
 that run's K5-lit renders and held against the CPU, and the texture,
-mesh-to-SDF and forward-gradient tools against the CPU. Every phase prints
-one JSON line; any failure raises and the script exits non-zero. The last
-line is {"ok": true, "device": {...}}.
+mesh-to-SDF and forward-gradient tools against the CPU; then the web
+viewer beside a run of the train CLI (renders in every mode, pause,
+resume and stop, the stopped run's checkpoint rendering the viewer's last
+view again); then training across ranks on the one card (two gloo ranks
+against one: the NeRF step, a K5-lit takeover step, the emitter query;
+the train CLI in two processes and a one-rank NCCL world). Every phase
+prints one JSON line; any failure raises and the script exits non-zero.
+The last line is {"ok": true, "device": {...}}.
 
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -1153,6 +1158,538 @@ def denoise(dev, seed: int, root: Path, *, res: int = 64, spp_ref: int = 64, app
     return rec, checks, path_launches
 
 
+VIEWER_MODES = ("rgb", "depth", "accumulation", "normal")
+
+
+def viewer(dev, seed: int, *, views: int = 32, res: int = 128, takeover: int = 30, distill: int = 100,
+           render_res: int = 256, render_spp: int = 4, concurrent_sizes=(64, 96, 128, 160), extra=()):
+    """The web viewer beside sdf-nerfacto's train CLI, in-process: the run
+    (full width, the synthetic scene of `views` at res^2, the takeover at
+    step `takeover`, the cache distilled for `distill` steps) steps in a
+    thread with --viewer-port on a free port while this thread is the
+    client: /render in all four modes at render_res^2, spp render_spp,
+    before and after the takeover; renders at `concurrent_sizes` while the
+    steps run (each a new march graph, captured on a server thread beside
+    the trainer's); then paused: the four modes again (their K5 launches
+    counted alone), a rotated light, /scene (the light clusters),
+    /metrics, /save_path; resume, pause, a last rgb view, stop. The run
+    must end at the stop with a checkpoint (at the step after the last one
+    run, as the reference saves it), whose restore in a new Trainer
+    renders the last view's PNG within 1/255 (render_camera_outputs of the
+    same pose, a generator seeded 0). Returns (record, checks, the viewer's
+    launches)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from nerf_emitter_tpu_torch import kernels
+    from nerf_emitter_tpu_torch.data.datamanager import ImageDataset
+    from nerf_emitter_tpu_torch.data.synthetic import make_synthetic_dataset
+    from nerf_emitter_tpu_torch.engine.trainer import Trainer
+    from nerf_emitter_tpu_torch.scripts import train
+    from nerf_emitter_tpu_torch.utils.video import read_png
+    from nerf_emitter_tpu_torch.viewer import server
+
+    cuda = dev.type == "cuda"
+    port = train.free_port()
+    base = f"http://127.0.0.1:{port}"
+    errors = []  # every answer that was not 200
+
+    def call(path, payload=None):
+        req = urllib.request.Request(base + path, data=None if payload is None else json.dumps(payload).encode(),
+                                     method="GET" if payload is None else "POST")
+        try:
+            return urllib.request.urlopen(req, timeout=300).read()
+        except urllib.error.HTTPError as e:
+            errors.append(f"{path}: {e.code} {e.read()[:300]!r}")
+            raise
+
+    def metrics():
+        return json.loads(call("/metrics"))
+
+    def wait(cond, thread, timeout=900.0):
+        deadline = time.time() + timeout
+        while True:
+            m = metrics()
+            if cond(m):
+                return m
+            if time.time() > deadline or not thread.is_alive():
+                raise AssertionError(f"viewer: the run did not reach the condition: {m}")
+            time.sleep(0.05)
+
+    def settle(thread):
+        """Pause, then wait until the step in flight has ended."""
+        call("/control", {"action": "pause"})
+        last = metrics()["step"]
+        while True:
+            time.sleep(0.5)
+            now = metrics()["step"]
+            if now == last:
+                return now
+            last = now
+
+    def png_ms(query):
+        t0 = time.perf_counter()
+        png = call(f"/render?{query}")
+        ms = (time.perf_counter() - t0) * 1e3
+        if png[:8] != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError(f"/render?{query} did not answer a PNG")
+        return png, ms
+
+    q = f"theta=0.6&phi=0.35&radius=1.4&fov=40&spp={render_spp}&w={render_res}&h={render_res}"
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = make_synthetic_dataset(Path(tmp) / "scene", n_views=views, width=res, height=res, seed=seed)
+        argv = ["sdf-nerfacto", "--datacfg.data", str(scene), "--output-dir", str(Path(tmp) / "out"),
+                "--experiment-name", "viewer", "--seed", str(seed), "--pipeline.takeover-step", str(takeover),
+                "--pipeline.distill-steps", str(distill), "--max-num-iterations", "100000",
+                "--steps-per-eval-image", "100000", "--steps-per-save", "100000", "--viewer-port", str(port),
+                *(() if cuda else ("--device", "cpu")), *extra]
+        box = {}
+        thread = threading.Thread(target=lambda: box.setdefault("trainer", train.main(argv)), daemon=True)
+        t_start = time.perf_counter()
+        thread.start()
+        while True:
+            try:
+                metrics()
+                break
+            except urllib.error.URLError:
+                if not thread.is_alive() or time.perf_counter() - t_start > 600:
+                    raise AssertionError("viewer: the server did not come up")
+                time.sleep(0.2)
+        try:
+            wait(lambda m: m["step"] >= 2, thread)
+            scene_nerf = json.loads(call("/scene"))
+            before = {mode: png_ms(f"{q}&mode={mode}")[1] for mode in VIEWER_MODES}
+            wait(lambda m: m["phase"] == "sdf" and m["step"] >= takeover + 2, thread)
+            t_sdf = time.perf_counter() - t_start
+            concurrent, step0 = {}, metrics()["step"]
+            for i, s in enumerate(concurrent_sizes):
+                concurrent[s] = png_ms(f"theta={0.3 * i}&phi=0.3&radius=1.4&spp=2&w={s}&h={s}")[1]
+            steps_during = metrics()["step"] - step0
+            paused_at = settle(thread)
+            if cuda:
+                torch.cuda.synchronize()
+            kernels.reset_launches()
+            after = {mode: png_ms(f"{q}&mode={mode}")[1] for mode in VIEWER_MODES}
+            rgb_ms = [png_ms(f"{q}&mode=rgb")[1] for _ in range(3)]
+            served = metrics()
+            lit_ms = png_ms(f"{q}&mode=rgb&light=90")[1]
+            if cuda:
+                torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+            scene_sdf = json.loads(call("/scene"))
+            saved = call("/save_path", {"keyframes": [{"theta": 0.0, "phi": 0.3, "radius": 1.4, "fov": 40},
+                                                      {"theta": 1.0, "phi": 0.3, "radius": 1.4, "fov": 40}],
+                                        "n_frames": 8}).decode()
+            call("/control", {"action": "resume"})
+            wait(lambda m: m["step"] > paused_at and not m["paused"], thread)
+            stop_at = settle(thread)
+            last_png = call(f"/render?{q}&mode=rgb")
+            call("/control", {"action": "stop"})
+            thread.join(600)
+        finally:
+            if thread.is_alive():
+                call("/control", {"action": "stop"})
+                thread.join(600)
+        trainer = box["trainer"]
+        trainer.close_viewer()
+        latest = trainer.ckpt.latest_step()
+        camera_path = (trainer.run_dir / "camera_path.json").exists()
+        config = dataclasses.replace(trainer.config, viewer_port=0)
+        del trainer, box
+        restored = Trainer(config)
+        restored.setup()
+        restored.load_checkpoint(latest)
+        cams = server.orbit_cameras(0.6, 0.35, 1.4, render_res, render_res, fov_deg=40.0, device=dev)
+        ds = ImageDataset(cameras=cams, images=restored.dataset.images[:1])
+        out = restored.pipeline.render_camera_outputs(ds, 0, torch.Generator(device=dev).manual_seed(0),
+                                                      spp=render_spp)
+        (Path(tmp) / "live.png").write_bytes(last_png)
+        (Path(tmp) / "restored.png").write_bytes(server.visualize(out["rgb"].float().cpu().numpy(), "rgb"))
+        live = read_png(Path(tmp) / "live.png").astype(int)
+        again = read_png(Path(tmp) / "restored.png").astype(int)
+        del restored, out
+    png_diff = int(abs(live - again).max())
+    rec = dict(views=views, res=res, takeover=takeover, distill=distill, render=f"{render_res}^2 spp {render_spp}",
+               to_takeover_s=t_sdf, render_ms_before_takeover=before, render_ms_after_takeover=after,
+               render_ms_rgb=rgb_ms, server_render_ms=served["render_ms"], lock_wait_ms=served["lock_wait_ms"],
+               render_ms_light_rotated=lit_ms, concurrent_render_ms=concurrent,
+               steps_during_concurrent_renders=steps_during, paused_at=paused_at, stopped_at=stop_at,
+               checkpoint=latest, light_clusters=len(scene_sdf.get("lights", {}).get("positions", [])),
+               launches=launches, png_max_diff_restored=png_diff, errors=errors,
+               reduced=[f"{views} views at {res}^2", f"--pipeline.takeover-step {takeover} (of 2000)",
+                        f"--pipeline.distill-steps {distill} (of 2000)", "stopped from the viewer"])
+    checks = {
+        "no_render_errors": not errors,
+        "scene_before_takeover_has_no_lights": scene_nerf.get("phase") != "nerf" or "lights" not in scene_nerf,
+        "scene_after_takeover_has_lights": scene_sdf.get("phase") == "sdf" and rec["light_clusters"] > 0,
+        "metrics_paused_in_sdf": served["paused"] and served["phase"] == "sdf" and len(served["losses"]) > 0,
+        "camera_path_written": camera_path and "camera_path.json" in saved,
+        # /metrics shows the last step run; the stop saves at the next
+        "stopped_with_a_checkpoint": latest == stop_at + 1,
+        "restored_view_within_1_of_255": png_diff <= 1,
+        "viewer_launched_k5": launches.get("mega_pipeline", 0) >= 1 if cuda else True,
+    }
+    return rec, checks, launches
+
+
+@contextlib.contextmanager
+def timed_collectives(dist, sink: list):
+    """Inside: torch.distributed's all_reduce and broadcast (the mesh
+    module's collectives) each timed, the device synchronised around the
+    call, its milliseconds appended to `sink`."""
+    real = {name: getattr(dist, name) for name in ("all_reduce", "broadcast")}
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+
+    def timed(fn):
+        def call(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            sink.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    for name, fn in real.items():
+        setattr(dist, name, timed(fn))
+    try:
+        yield sink
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def worst(checks: dict) -> dict:
+    """The largest error of a set of `close` checks, and whether all hold."""
+    name = max(checks, key=lambda k: checks[k]["max_abs_err"])
+    return dict(worst=name, max_abs_err=checks[name]["max_abs_err"], max_rel_err=checks[name]["max_rel_err"],
+                rtol=checks[name]["rtol"], atol=checks[name]["atol"], held=len(checks),
+                within=all(c["within"] for c in checks.values()))
+
+
+def _multi_gpu_rank(rank: int, world: int, port: int, seed: int, out_dir: str, cfg: dict) -> None:
+    """One rank of the multi_gpu phase (spawned): (a) the NeRF train step,
+    (b) a K5-lit takeover step and (c) the emitter query, each on rank 0
+    alone and then split over the ranks, on this rank's device; (c) also
+    the query gradient's independence of the batch. Saves its record to
+    out_dir/rank<r>.pt."""
+    os.environ.update(NERF_EMITTER_COORDINATOR=f"127.0.0.1:{port}", NERF_EMITTER_NUM_PROCESSES=str(world),
+                      NERF_EMITTER_PROCESS_ID=str(rank), PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from nerf_emitter_tpu_torch import kernels
+    from nerf_emitter_tpu_torch.data.datamanager import ImageDataset
+    from nerf_emitter_tpu_torch.engine import train_loop as TT
+    from nerf_emitter_tpu_torch.models.nerfacto import NerfactoModel
+    from nerf_emitter_tpu_torch.parallel import mesh as pm
+    from nerf_emitter_tpu_torch.pipelines.nerf_emitter import make_nerf_emitter_fn
+    from nerf_emitter_tpu_torch.pipelines.sdf_optimizer import SdfOptState, TakeoverConfig, build_sdf_optimizer
+    from nerf_emitter_tpu_torch.pipelines.sdf_optimizer import make_sdf_train_step
+    from nerf_emitter_tpu_torch.renderer.emitters import VMFMixture
+    from nerf_emitter_tpu_torch.renderer.optimize import get_opt_config
+    from nerf_emitter_tpu_torch.renderer.scene import SdfScene
+
+    cuda = cfg["device"] == "cuda"
+    if cuda:
+        kernels.build()
+    assert pm.maybe_initialize_distributed(cfg["device"])
+    mesh = pm.make_mesh(device_type=cfg["device"])
+    dev = mesh.device
+    rec = dict(rank=mesh.rank, world=mesh.world_size, backend=mesh.backend, device=str(dev))
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    ms_of = cuda_ms if cuda else (lambda fn, reps: float("nan"))
+
+    def model_of():
+        torch.manual_seed(seed)
+        return NerfactoModel(AABB, num_nerf_samples=cfg["samples"][2], num_proposal_samples=cfg["samples"][:2],
+                             num_cameras=128, appearance_embedding_dim=32, implementation="freq", device=dev)
+
+    def alone_then_all(run, runs_alone=1):
+        """run(mesh or None) -> (tensors, extras): `runs_alone` one-rank
+        runs on rank 0 alone (the ranks share the card's memory and time;
+        the others wait), then the sharded run on every rank. Returns
+        (rank 0's one-rank tensors on every rank, the repeats' tensors on
+        rank 0, rank 0's one-rank extras, this rank's sharded tensors and
+        extras)."""
+        alone = []
+        for _ in range(runs_alone if mesh.is_main else 0):
+            alone.append(run(None))
+        pm.barrier(mesh)
+        sharded, extras = run(mesh)
+        one = alone[0][0] if alone else {k: torch.zeros_like(v) for k, v in sharded.items()}
+        pm.replicated(one, mesh)
+        return one, [a[0] for a in alone[1:]], alone[0][1] if alone else {}, sharded, extras
+
+    def timed_run(fn):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with timed_collectives(pm.dist, []) as coll_ms:
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+        return out, dict(ms=ms, collective_ms=sum(coll_ms), collectives=len(coll_ms),
+                         launches=dict(kernels.launches),
+                         peak_gb=torch.cuda.max_memory_allocated() / 2**30 if cuda else None)
+
+    def held(got, want, names):
+        return worst({k: close(got[k], want[k], rtol=2e-4, atol=1e-6) for k in names})
+
+    # (a) the NeRF train step at sdf-nerfacto's batch
+    g = torch.Generator().manual_seed(seed)
+    cams = ring_cameras(cfg["views"], cfg["res"], dev)
+    ds = ImageDataset(cameras=cams, images=torch.rand((cfg["views"], cfg["res"], cfg["res"], 3), generator=g).to(dev))
+    init = {k: v.clone() for k, v in model_of().state_dict().items()}
+
+    def nerf_step(m):
+        model = model_of()
+        tc = TT.TrainConfig(num_rays_per_batch=cfg["rays"], data_axis=None if m is None else pm.DATA_AXIS)
+        for _ in range(2):  # a warm-up step, then the step held, from the same start
+            model.load_state_dict(init)
+            state, opt = TT.create_train_state(model, tc, m)
+            step = TT.make_train_step(model, tc, opt, mesh=m)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            metrics, extras = timed_run(lambda: step(state, ds, gen))
+        out = {f"p.{k}": p.detach().clone() for k, p in model.named_parameters()}
+        return out | {"loss": metrics["loss"].reshape(1).detach()}, extras
+
+    one, _, one_x, sh, sh_x = alone_then_all(nerf_step)
+    params = [k for k in one if k.startswith("p.")]
+    rec["nerf_step"] = {
+        "rays": cfg["rays"], "loss": [float(one["loss"]), float(sh["loss"])],
+        "loss_rel_err": float((sh["loss"] - one["loss"]).abs() / one["loss"].abs()),
+        "params": held(sh, one, params), "replica_max_diff": pm.max_replica_difference([sh[k] for k in params], mesh),
+        "ms": {"one_rank_alone": one_x.get("ms"), "sharded": sh_x["ms"]}, "collective_ms": sh_x["collective_ms"],
+        "collectives": sh_x["collectives"], "peak_gb": {"one_rank_alone": one_x.get("peak_gb"),
+                                                        "sharded": sh_x["peak_gb"]}}
+    del one, sh, ds, init
+
+    # (b) one K5-lit takeover step at prod5f's shapes
+    model = model_of()
+    pm.replicated(model, mesh)
+    recipe = get_opt_config(TAKEOVER_RECIPE)
+    size = cfg["size"]
+    gen = torch.Generator().manual_seed(seed + 1)
+    k = 8
+    vmf = VMFMixture(positions=(0.5 + 0.6 * torch.randn((k, 3), generator=gen)).to(dev),
+                     weights=torch.rand((k,), generator=gen).to(dev) + 0.1, stds=torch.full((k,), 0.3, device=dev))
+    cams = ring_cameras(4, size, dev, focal=size)
+    gts = torch.rand((4, size, size, 3), generator=gen).to(dev)
+    masks = (torch.rand((4, size, size, 1), generator=gen) > 0.5).float().to(dev)
+    fn_of = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, far=4.0, detach_nerf=True)
+    tk = TakeoverConfig(spp=cfg["spp"], spp_per_batch=min(8, cfg["spp"]), image_height=size, image_width=size,
+                        scene_scale=1.0, spp_attached=cfg["spp_attached"])
+    cam = torch.arange(cfg["batch"], device=dev)
+    shape = {}
+
+    def takeover_step(m):
+        scene = SdfScene.create(sdf_res=recipe.init_res, tex_res=recipe.tex_res, bsdf_type=recipe.bsdf_type,
+                                init_radius=0.25, device=dev).replace(guiding=vmf)
+        tx = GradProbe(build_sdf_optimizer(recipe))
+        step = make_sdf_train_step(recipe, tk, tx, render_config=takeover_render_config(),
+                                   emitter_for_camera=lambda c, r: fn_of(camera_index=c, rot_id=r), mesh=m,
+                                   data_axis=None if m is None else pm.DATA_AXIS)
+        shape.update(bands=step.n_grad_bands, detached_chunks=step.chunks)
+        state = SdfOptState(step=0, scene=scene, opt_state=tx.init(scene))
+        g_step = torch.Generator(device=dev).manual_seed(seed + 2)
+        (new, metrics), extras = timed_run(lambda: step(state, cams, cam, gts[cam], masks[cam], g_step))
+        return {"loss": torch.tensor([float(metrics["loss"])], device=dev), "sdf": new.scene.sdf,
+                "albedo": new.scene.albedo, "g.sdf": new.opt_state[1]["sdf"],
+                "g.albedo": new.opt_state[1]["albedo"]}, extras
+
+    one, again, one_x, sh, sh_x = alone_then_all(takeover_step, runs_alone=2)
+    rec["takeover_step"] = {
+        "size": size, "batch": cfg["batch"], "spp": cfg["spp"], "spp_attached": cfg["spp_attached"], **shape,
+        "loss": [float(one["loss"]), float(sh["loss"])],
+        "loss_rel_err": float((sh["loss"] - one["loss"]).abs() / one["loss"].abs()),
+        "params": held(sh, one, ("sdf", "albedo")), "grads": held(sh, one, ("g.sdf", "g.albedo")),
+        # the one-rank step against itself, run again on rank 0: the card's
+        # own run-to-run spread (atomic adds in the grids' backward)
+        "one_rank_repeat": {"params": held(again[0], one, ("sdf", "albedo")),
+                            "grads": held(again[0], one, ("g.sdf", "g.albedo"))} if again else None,
+        "replica_max_diff": pm.max_replica_difference([sh["sdf"], sh["albedo"]], mesh),
+        "ms": {"one_rank_alone": one_x.get("ms"), "sharded": sh_x["ms"]}, "collective_ms": sh_x["collective_ms"],
+        "peak_gb": {"one_rank_alone": one_x.get("peak_gb"), "sharded": sh_x["peak_gb"]},
+        "launches": sh_x["launches"], "launches_one_rank": one_x.get("launches")}
+    del one, again, sh
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (c) the emitter query on a replicated batch, split over the ranks
+    x_unit, d = emitter_rays(cfg["query_rays"], seed, dev)
+    alone = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, far=4.0)(camera_index=0)
+    split = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, far=4.0, mesh=mesh, data_axis=pm.DATA_AXIS)(camera_index=0)
+    with torch.no_grad():
+        want = alone(x_unit, d)
+        kernels.reset_launches()
+        got = split(x_unit, d)
+        sync()
+        q_launches = dict(kernels.launches)
+        q_ms = {"k5_alone": ms_of(lambda: alone(x_unit, d), 3), "sharded": ms_of(lambda: split(x_unit, d), 3)}
+    rec["query"] = dict(rays=cfg["query_rays"], max_abs_diff=float((got - want).abs().max()), shape=list(got.shape),
+                        launches=q_launches, ms=q_ms)
+    # on rank 0 alone: a ray's gradient through the kernel query does not
+    # depend on the batch it is asked in (2 x query_rays rays, then in halves;
+    # the backward recomputes in chunks of mega_query.RECOMPUTE_RAYS)
+    if mesh.is_main:
+        lit = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, far=4.0, detach_nerf=True)(camera_index=0)
+        x2, d2 = emitter_rays(2 * cfg["query_rays"], seed + 3, dev)
+        w2 = torch.rand((x2.shape[0], 3), generator=torch.Generator().manual_seed(seed)).to(dev)
+
+        def ray_grads(rows):
+            xs, ds = x2[rows].clone().requires_grad_(), d2[rows].clone().requires_grad_()
+            return torch.cat(torch.autograd.grad((lit(xs, ds) * w2[rows]).sum(), [xs, ds]), dim=1)
+
+        whole = ray_grads(slice(None))
+        half = cfg["query_rays"]
+        halves = torch.cat([ray_grads(slice(0, half)), ray_grads(slice(half, None))])
+        rec["query"]["grad_rows_vs_halves"] = dict(rays=2 * half, max_abs_diff=float((whole - halves).abs().max()),
+                                                   max_abs=float(whole.abs().max()))
+        del whole, halves
+    pm.barrier(mesh)
+    torch.save(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+    pm.barrier(mesh)
+    torch.distributed.destroy_process_group()
+
+
+def _cli_ranks(world: int, port: int, argv: list, timeout: float, boot=None) -> list:
+    """The train CLI in `world` processes joined through NERF_EMITTER_*;
+    returns each rank's (exit code, output). A rank still running at the
+    timeout is killed (exit code -9). `boot`: Python source run instead of
+    `-m nerf_emitter_tpu_torch.scripts.train` (it gets the same argv)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = ["-m", "nerf_emitter_tpu_torch.scripts.train"] if boot is None else ["-c", boot]
+    with tempfile.TemporaryDirectory() as logs:
+        procs = []
+        for rank in range(world):
+            # the host's cores shared out: gloo's ranks oversubscribed stall
+            env = dict(os.environ, NERF_EMITTER_COORDINATOR=f"127.0.0.1:{port}",
+                       NERF_EMITTER_NUM_PROCESSES=str(world), NERF_EMITTER_PROCESS_ID=str(rank), PYTHONPATH=here,
+                       OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // world)))
+            with open(Path(logs) / f"{rank}.log", "w") as log:
+                procs.append(subprocess.Popen([sys.executable, *cmd, *argv], cwd=here, env=env, text=True,
+                                              stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.time() + timeout
+        try:
+            for p in procs:
+                try:
+                    p.wait(timeout=max(1.0, deadline - time.time()))
+                except subprocess.TimeoutExpired:
+                    pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return [(p.returncode, (Path(logs) / f"{rank}.log").read_text()) for rank, p in enumerate(procs)]
+
+
+def multi_gpu(dev, seed: int, *, world: int = 2, views: int = 16, res: int = 256, rays: int = TRAIN_RAYS,
+              size: int = 128, batch: int = 2, spp: int = 16, spp_attached: int = 8, query_rays: int = RAYS,
+              samples=(*SAMPLES, NERF_SAMPLES), cli_views: int = 16, cli_res: int = 64, extra=(), boot=None):
+    """Training across ranks on the one card: `world` ranks joined over
+    gloo (NCCL refuses two ranks on one device), spawned with
+    torch.multiprocessing; each holds against the one-rank result on the
+    card, computed in the same process: (a) the NeRF train step at `rays`
+    rays (full width; loss rtol 1e-5, parameters rtol 2e-4, atol 1e-6:
+    tests/test_multichip.py's bars); (b) one K5-lit takeover step at
+    prod5f's shapes (size^2, `batch` images, spp `spp`, `spp_attached`
+    attached) at the same bars, with each rank's K5 and K1 launches; (c)
+    the emitter query on `query_rays` replicated rays split over the ranks
+    against K5 alone (max abs difference 1e-6: rows are independent), and
+    on rank 0 the query's ray gradients at 2 x query_rays rays against the
+    same rays asked in halves (equal: ROADMAP Queue 3 item 10). Then
+    the train CLI through NERF_EMITTER_* in `world` processes (both ranks'
+    losses equal, rank 0 alone writing events and checkpoints), and in one
+    process, a world of one rank on NCCL. Two ranks on one card measure
+    correctness and the collectives' overhead, not a speed-up across
+    cards. On the CPU (`dev` cpu, for a rehearsal) the ranks and the CLI
+    run there (the CLI with `extra` flags, through `boot`). Returns
+    (record, checks, the sharded runs' launches summed over the ranks)."""
+    import re
+
+    from nerf_emitter_tpu_torch.data.synthetic import make_synthetic_dataset
+    from nerf_emitter_tpu_torch.scripts.train import free_port
+
+    cfg = dict(views=views, res=res, rays=rays, size=size, batch=batch, spp=spp, spp_attached=spp_attached,
+               query_rays=query_rays, samples=tuple(samples), device=dev.type)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.multiprocessing.spawn(_multi_gpu_rank, args=(world, free_port(), seed, tmp, cfg), nprocs=world,
+                                    join=True)
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(world)]
+        ranks_s = time.perf_counter() - t0
+
+        scene = make_synthetic_dataset(Path(tmp) / "scene", n_views=cli_views, width=cli_res, height=cli_res,
+                                       seed=seed)
+
+        def argv(name):
+            return ["sdf-nerfacto", "--datacfg.data", str(scene), "--output-dir", str(Path(tmp) / "out"),
+                    "--experiment-name", name, "--seed", str(seed), "--pipeline.takeover-step", "10",
+                    "--max-num-iterations", "21", "--pipeline.distill-steps", "20", "--steps-per-eval-image", "15",
+                    "--steps-per-save", "15", *(() if dev.type == "cuda" else ("--device", "cpu")), *extra]
+
+        t1 = time.perf_counter()
+        cli = _cli_ranks(world, free_port(), argv("ranks"), timeout=400, boot=boot)
+        cli_s = time.perf_counter() - t1
+        run_dir = Path(tmp) / "out/ranks/sdf-nerfacto"
+        rows = ([json.loads(ln) for ln in (run_dir / "logs/events.jsonl").read_text().splitlines()]
+                if (run_dir / "logs/events.jsonl").exists() else [])
+        ckpts = sorted(p.name for p in (run_dir / "checkpoints").iterdir()) if (run_dir / "checkpoints").exists() \
+            else []
+        t2 = time.perf_counter()
+        (nccl_rc, nccl_out), = _cli_ranks(1, free_port(), argv("nccl"), timeout=300, boot=boot)
+        nccl_s = time.perf_counter() - t2
+        nccl_ckpt = (Path(tmp) / "out/nccl/sdf-nerfacto/checkpoints/21").exists()
+    train_losses = {r["step"]: r["loss"] for r in rows if "loss" in r}
+    printed = [{int(s): float(v) for r, s, v in re.findall(r"^rank (\d+) step (\d+) loss (\S+)$", out, re.M)}
+               for _, out in cli[1:]]
+    launches = {}
+    for r in ranks:
+        for src in (r["takeover_step"]["launches"], r["query"]["launches"]):
+            for k, v in src.items():
+                launches[k] = launches.get(k, 0) + v
+    rec = dict(world=world, backend=[r["backend"] for r in ranks], devices=[r["device"] for r in ranks],
+               ranks_s=ranks_s, per_rank=[{k: r[k] for k in ("nerf_step", "takeover_step", "query")} for r in ranks],
+               cli=dict(seconds=cli_s, rcs=[rc for rc, _ in cli], losses_rank0=train_losses, losses_printed=printed,
+                        rows=len(rows), checkpoints=ckpts, tail=[out[-1500:] for rc, out in cli if rc != 0]),
+               nccl=dict(seconds=nccl_s, rc=nccl_rc, checkpoint=nccl_ckpt,
+                         tail=nccl_out[-1500:] if nccl_rc != 0 else None),
+               note="two ranks share one card: correctness and the collectives' overhead, no speed-up across cards",
+               reduced=[f"(a) {views} views at {res}^2 of random images", "(b) random GT at prod5f's shapes",
+                        f"the CLI runs: {cli_views} views at {cli_res}^2, 10 + 11 steps"])
+    per_step = [r["nerf_step"] for r in ranks]
+    per_take = [r["takeover_step"] for r in ranks]
+    checks = {
+        "gloo_on_one_card": all(r["backend"] == "gloo" for r in ranks),
+        "nerf_step_collectives_ran": all(s["collectives"] > 0 for s in per_step),
+        "nerf_step_loss_rtol_1e-5": all(s["loss_rel_err"] <= 1e-5 for s in per_step),
+        "nerf_step_params": all(s["params"]["within"] for s in per_step),
+        "nerf_step_replicas_equal": all(s["replica_max_diff"] == 0.0 for s in per_step),
+        "takeover_loss_rtol_1e-5": all(s["loss_rel_err"] <= 1e-5 for s in per_take),
+        "takeover_params": all(s["params"]["within"] for s in per_take),
+        "takeover_replicas_equal": all(s["replica_max_diff"] == 0.0 for s in per_take),
+        "takeover_k5_and_k1_on_every_rank": dev.type != "cuda" or all(
+            s["launches"].get("mega_pipeline", 0) >= 1 and s["launches"].get("fused_density", 0) >= 1
+            for s in per_take),
+        "query_within_1e-6": all(r["query"]["max_abs_diff"] <= 1e-6 for r in ranks),
+        "query_grad_rows_independent_of_the_batch": ranks[0]["query"]["grad_rows_vs_halves"]["max_abs_diff"] == 0.0,
+        "cli_ranks_exit_0": all(rc == 0 for rc, _ in cli),
+        "cli_losses_equal_on_every_rank": bool(train_losses) and all(p == train_losses for p in printed),
+        "cli_rank0_alone_writes": sorted(train_losses) == [0, 10, 20] and len([r for r in rows if "loss" in r]) == 3
+        and ckpts == ["21"] and "(gloo)" in cli[0][1],
+        "nccl_one_rank": nccl_rc == 0 and nccl_ckpt
+        and f"process group: {'nccl' if dev.type == 'cuda' else 'gloo'}" in nccl_out,
+    }
+    return rec, checks, launches
+
+
 def trees_equal(a, b) -> bool:
     """Two state trees (engine/checkpoints.py's) equal bit for bit."""
     if isinstance(a, torch.Tensor):
@@ -2229,24 +2766,50 @@ def main() -> int:
         raise AssertionError(f"denoise: failed checks {bad}: {den_checks}")
     if den_launches.get("mega_pipeline", 0) < 1:
         raise AssertionError(f"the denoising path did not run K5: {den_launches}")
+    torch.cuda.empty_cache()
+
+    # ---- phase 13e: the web viewer beside sdf-nerfacto's train CLI
+    # (`viewer`): renders in every mode before and after the takeover,
+    # renders beside the running steps, pause, resume and stop, the
+    # stopped run's checkpoint rendering the last view again
+    t_phase = time.perf_counter()
+    view_rec, view_checks, view_launches = viewer(dev, args.seed)
+    emit(dict(phase="viewer", **view_rec, checks=view_checks, phase_s=time.perf_counter() - t_phase))
+    bad = [k for k, c in view_checks.items() if not c]
+    if bad:
+        raise AssertionError(f"viewer: failed checks {bad}: {view_checks}")
+    torch.cuda.empty_cache()
+
+    # ---- phase 13f: across ranks on the one card (`multi_gpu`): two gloo
+    # ranks against one rank (the NeRF step, a K5-lit takeover step, the
+    # emitter query), the train CLI in two processes, and a one-rank NCCL
+    # world through the CLI
+    t_phase = time.perf_counter()
+    mg_rec, mg_checks, mg_launches = multi_gpu(dev, args.seed)
+    emit(dict(phase="multi_gpu", **mg_rec, checks=mg_checks, launches=mg_launches,
+              phase_s=time.perf_counter() - t_phase))
+    bad = [k for k, c in mg_checks.items() if not c]
+    if bad:
+        raise AssertionError(f"multi_gpu: failed checks {bad}: {mg_checks}")
 
     # ---- phase 14: the kernels line. K5 carries the query (phase 3), the
     # other schedules (phase 7), the turntable (phase 9), the
     # distillation's teacher (phase 11), the trained field's emitter
     # (phase 13), the train CLI's run (phase 13b), the end-task tools
-    # (phase 13c) and the learned denoiser's renders (phase 13d); K3 and K4 the
-    # two-kernel query (phases 3 and 13); K2 the
+    # (phase 13c), the learned denoiser's renders (phase 13d), the viewer's
+    # renders (phase 13e) and the ranks' takeover step and query (phase
+    # 13f); K3 and K4 the two-kernel query (phases 3 and 13); K2 the
     # staged query; K1 the backward (phase 4), the staged query and the
-    # K5-lit takeovers (phases 12c and 13c); the
+    # K5-lit takeovers (phases 12c, 13c and 13f); the
     # field MLP alone its own phase (one launch at the field's shape); P1-P3
     # the profiling scripts (phase 6). Each reports its launches in the
     # runs of its own paths.
     # `launches` sums a kernel's paths; `launches_by_path` splits them.
     path_of = {"mega_pipeline": ["query", "schedules", "turntable", "distill", "render", "takeover", "train",
-                                 "pipeline", "endtask", "denoise"],
+                                 "pipeline", "endtask", "denoise", "viewer", "multi_gpu"],
                "proposal": ["two_kernel_query", "train"], "field_mlp": ["field_mlp"],
                "field_composite": ["two_kernel_query", "train"],
-               "fused_density": ["backward", "staged_query", "takeover", "endtask"],
+               "fused_density": ["backward", "staged_query", "takeover", "endtask", "multi_gpu"],
                "fused_field": ["staged_query"], "profile_query.kernel_a": ["profile_query"],
                "profile_query.kernel_b": ["profile_query"]}
     path_of |= {f"proposal_variant[{m}]": ["profile_kernel_a"] for m in mq.PROPOSAL_MODES}
@@ -2256,8 +2819,8 @@ def main() -> int:
               "staged_query": staged_launches, "field_mlp": mlp_launches, "schedules": sched_launches,
               "turntable": tt_launches, "distill": distill_launches, "render": render_launches,
               "takeover": take_launches, "train": train_k5 | train_two, "pipeline": pipe_launches,
-              "endtask": end_launches, "denoise": den_launches,
-              **script_launches}
+              "endtask": end_launches, "denoise": den_launches, "viewer": view_launches,
+              "multi_gpu": mg_launches, **script_launches}
 
     def by_path(name):
         return {p: counts[p].get(counted_as.get(name, name), 0) for p in path_of[name]}

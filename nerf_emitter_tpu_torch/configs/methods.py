@@ -61,7 +61,7 @@ class ExperimentConfig:
     steps_per_save: int = 500
     steps_per_eval_image: int = 500
     seed: int = 42
-    viewer_port: int = 0  # 0: no viewer (the viewer is not ported)
+    viewer_port: int = 0  # the web viewer's port (viewer/server.py); 0: no viewer
     opt_config_name: str = "diffuse-12-relativel1-hqq"
     # the device the run lives on: CUDA unless the CPU is asked for
     device: str = "cuda"

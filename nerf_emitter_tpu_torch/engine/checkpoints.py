@@ -10,6 +10,9 @@ CPU, read back with `torch.load(weights_only=True)`, so values round-trip
 bit for bit; and `metadata.json`, the same tree with each tensor replaced
 by its shape and dtype, which can be read without loading the state (the
 trainer reads the stored SDF resolution from it).
+
+Across ranks (`mesh`) rank 0 alone writes, and every rank waits for the
+write (a barrier) before any of them reads; every rank restores.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from pathlib import Path
 from typing import Any, NamedTuple, Optional
 
 import torch
+
+from ..parallel.mesh import Mesh, barrier
 
 _STATE, _META = "state.pt", "metadata.json"
 
@@ -120,14 +125,19 @@ def _like(stored: Any, template: Any, path: str) -> Any:
 
 class CheckpointManager:
     """Steps saved under `directory`; with `save_only_latest` only the newest
-    is kept."""
+    is kept. With a mesh only rank 0 writes."""
 
-    def __init__(self, directory: Path, save_only_latest: bool = True):
+    def __init__(self, directory: Path, save_only_latest: bool = True, mesh: Optional[Mesh] = None):
         self.directory = Path(directory).absolute()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.is_main
+        if self.writes:
+            self.directory.mkdir(parents=True, exist_ok=True)
         self.save_only_latest = save_only_latest
 
     def steps(self) -> list[int]:
+        if not self.directory.is_dir():
+            return []
         return sorted(int(p.name) for p in self.directory.iterdir()
                       if p.name.isdigit() and (p / _STATE).exists() and (p / _META).exists())
 
@@ -141,6 +151,11 @@ class CheckpointManager:
         latest = self.latest_step()
         if latest is not None and step <= latest:
             raise RuntimeError(f"checkpoint save at step {step} refused: the directory's latest is {latest}")
+        if self.writes:
+            self._write(step, state)
+        barrier(self.mesh)
+
+    def _write(self, step: int, state: Any) -> None:
         tree = to_tree(state)
         tmp = self.directory / f"{step}.tmp"
         shutil.rmtree(tmp, ignore_errors=True)

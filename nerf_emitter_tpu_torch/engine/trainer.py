@@ -6,8 +6,17 @@ the steps, writing metrics every 10 steps (with rays/s and the ETA),
 rendering an eval view every `steps_per_eval_image` steps and saving every
 `steps_per_save`; checkpoints are engine/checkpoints.py's. Dataparsers
 that plugins register (plugins/registry.py) are picked by name before the
-built-in ones. The viewer (ROADMAP.md, Queue 1 item 8) and more than one
-device (item 7) are not ported and raise.
+built-in ones.
+
+With `viewer_port` the web viewer (viewer/server.py) serves the live
+pipeline; each step polls its pause and stop flags (stop saves a
+checkpoint and ends the run), and the pipeline's lock is held around each
+step, eval view and save, so the viewer's renders run between them.
+
+In a process group of more than one rank (parallel/mesh.py) the trainer
+runs one rank: its device is cuda:<local rank>, the steps and views split
+their rays over the ranks, rank 0 alone writes events, rows, eval images
+and checkpoints and serves the viewer, and every rank restores.
 """
 
 from __future__ import annotations
@@ -27,10 +36,11 @@ from ..data.dataparsers.nerfstudio import NerfstudioDataparserConfig, parse_nerf
 from ..engine.train_loop import eval_image_metrics, load_train_state_tree, train_state_tree
 from ..fields.rotater import Rotater
 from ..models.nerfacto import NerfactoModel
+from ..parallel.mesh import DATA_AXIS, broadcast_flag, is_main_process, make_mesh
 from ..pipelines.nerf_emitter import NerfEmitterPipeline
 from ..plugins.registry import discover_dataparsers
 from ..renderer.optimize import get_opt_config
-from ..utils import profiler
+from ..utils import coords, profiler
 from ..utils import writer as writer_mod
 from ..utils.device import resolve_device
 from .checkpoints import CheckpointManager, template_from_metadata
@@ -44,14 +54,16 @@ class Trainer:
         self.config = config
         self.run_dir = config.run_dir
         self.device = resolve_device(config.device)
-        if self.device.type == "cuda" and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                f"{torch.cuda.device_count()} CUDA devices are visible; training across cards is not ported yet "
-                "(ROADMAP.md, Queue 1 item 7): make one visible with CUDA_VISIBLE_DEVICES")
-        if config.viewer_port:
-            raise NotImplementedError("the viewer is not ported yet (ROADMAP.md, Queue 1 item 8)")
-        self.writer = writer_mod.EventWriter(self.run_dir / "logs")
-        self.ckpt = CheckpointManager(self.run_dir / "checkpoints")
+        # across ranks: this rank's view of the process group (None: one rank)
+        mesh = make_mesh(device_type=self.device.type)
+        self.mesh = mesh if mesh.world_size > 1 else None
+        if self.mesh is not None:
+            self.device = self.mesh.device
+        self.is_main = is_main_process()
+        self.writer = writer_mod.EventWriter(self.run_dir / "logs", enabled=self.is_main)
+        self.ckpt = CheckpointManager(self.run_dir / "checkpoints", mesh=self.mesh)
+        self.viewer_state = None
+        self.viewer_server = None
 
     def setup(self) -> None:
         cfg = self.config
@@ -126,9 +138,55 @@ class Trainer:
                 self.rotater = Rotater.from_angles(md["rotation_angles"], center)
             print(f"turntable: {len(np.unique(np.asarray(rot_ids)))} rotations, "
                   f"angles={list(np.asarray(md.get('rotation_angles', [])))}")
-        self.pipeline = NerfEmitterPipeline(pipe_cfg, self.model, cfg.train, get_opt_config(cfg.opt_config_name),
-                                            self.dataset, mi_dataset=self.mi_dataset, rotater=self.rotater)
+        train_cfg = cfg.train
+        if self.mesh is not None:
+            train_cfg = dataclasses.replace(train_cfg, data_axis=DATA_AXIS)
+            if self.is_main:
+                print(f"mesh: {self.mesh.world_size} ranks on axis '{DATA_AXIS}' ({self.mesh.backend})", flush=True)
+        self.pipeline = NerfEmitterPipeline(pipe_cfg, self.model, train_cfg, get_opt_config(cfg.opt_config_name),
+                                            self.dataset, mi_dataset=self.mi_dataset, rotater=self.rotater,
+                                            mesh=self.mesh, data_axis=None if self.mesh is None else DATA_AXIS)
         self.pipeline.data_dir = d.data  # where env.exr is looked for
+        if cfg.viewer_port and self.is_main:
+            from ..viewer.server import ViewerState, make_orbit_render_fn, start_viewer
+
+            self.viewer_state = ViewerState(make_orbit_render_fn(self.pipeline, self.dataset),
+                                            save_dir=self.run_dir, scene_fn=self._viewer_scene_info)
+            self.viewer_server = start_viewer(self.viewer_state, cfg.viewer_port)
+
+    def _viewer_scene_info(self) -> dict:
+        """The viewer's scene tree (/scene): the training cameras, the
+        object AABB and, once the takeover fits them, the guiding mixture's
+        light clusters in world space. Read under the pipeline's lock (the
+        copies to the host are CUDA calls, which must not meet a step's
+        graph capture)."""
+        pipe = self.pipeline
+        with pipe.lock:
+            sdf_state = pipe.sdf_state
+            info: dict = {"phase": "sdf" if sdf_state is not None else "nerf",
+                          "cameras": self.dataset.cameras.camera_to_worlds[:, :3, :4].cpu().tolist(),
+                          "aabb": pipe.object_aabb.cpu().tolist()}
+            if sdf_state is not None and sdf_state.scene.guiding is not None:
+                g = sdf_state.scene.guiding
+                pos = coords.unit_to_world(g.positions.detach().cpu(), self.config.datacfg.scene_scale)
+                info["lights"] = {"positions": pos.tolist(), "weights": g.weights.detach().cpu().tolist()}
+        return info
+
+    def _stop_requested(self) -> bool:
+        """Poll the viewer: wait while it pauses the run (the lock is free
+        meanwhile, so it renders); whether it asked to stop, on every rank."""
+        vs = self.viewer_state
+        if vs is not None:
+            while vs.paused and not vs.stop_requested:
+                time.sleep(0.25)
+        stop = vs is not None and vs.stop_requested
+        return broadcast_flag(stop, self.mesh) if self.config.viewer_port else stop
+
+    def close_viewer(self) -> None:
+        if self.viewer_server is not None:
+            self.viewer_server.shutdown()
+            self.viewer_server.server_close()
+            self.viewer_server = None
 
     @profiler.time_function
     def train(self, start_step: int = 0) -> None:
@@ -136,21 +194,42 @@ class Trainer:
         cfg = self.config
         # written only by train: the eval and render tools build a Trainer
         # from a loaded config and must not overwrite the run's
-        save_config(cfg, self.run_dir / "config.json")
+        if self.is_main:
+            save_config(cfg, self.run_dir / "config.json")
         generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         t_start = time.time()
         n_rays = cfg.train.num_rays_per_batch
+        lock = self.pipeline.lock
+        vs = self.viewer_state
         for step in range(start_step, cfg.max_num_iterations):
-            with profiler.time_block("train_iteration"):
-                metrics = self.pipeline.train_iteration(step, generator)
-            if step % 10 == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                dt = (time.time() - t_start) / (step - start_step + 1)
-                m[writer_mod.TRAIN_RAYS_PER_SEC] = n_rays / max(dt, 1e-9)
-                m[writer_mod.ETA] = dt * (cfg.max_num_iterations - step)
-                self.writer.put_dict(m, step)
-                self.writer.maybe_print(step, m)
-                self.writer.flush(step)
+            if self._stop_requested():
+                if self.is_main:
+                    print(f"viewer: stop requested at step {step}", flush=True)
+                latest = self.ckpt.latest_step()
+                if latest is None or step > latest:
+                    self.save_checkpoint(step)
+                elif self.is_main:
+                    print(f"viewer stop: step {step} is not past the latest checkpoint ({latest}); not saved")
+                self.writer.close()
+                return
+            with lock:
+                with profiler.time_block("train_iteration"):
+                    metrics = self.pipeline.train_iteration(step, generator)
+                if step % 10 == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    dt = (time.time() - t_start) / (step - start_step + 1)
+                    m[writer_mod.TRAIN_RAYS_PER_SEC] = n_rays / max(dt, 1e-9)
+                    m[writer_mod.ETA] = dt * (cfg.max_num_iterations - step)
+                    self.writer.put_dict(m, step)
+                    self.writer.maybe_print(step, m)
+                    self.writer.flush(step)
+                    if self.mesh is not None and not self.is_main:
+                        print(f"rank {self.mesh.rank} step {step} loss {m['loss']!r}", flush=True)
+                    if vs is not None:
+                        vs.put_metrics(step, m)
+            if vs is not None:
+                vs.step = step
+                vs.phase = "sdf" if self.pipeline.sdf_state is not None else "nerf"
             if step > 0 and step % cfg.steps_per_eval_image == 0:
                 self.eval_step(step)
             # not at start_step: a resumed run's first step can be the
@@ -162,12 +241,16 @@ class Trainer:
 
     def eval_step(self, step: int) -> None:
         """One eval view: the NeRF's render before the takeover, the SDF
-        scene's lit by the NeRF after it."""
+        scene's lit by the NeRF after it. Every rank renders its rows; rank 0
+        writes."""
         ds = self.eval_dataset or self.dataset
         idx = step // self.config.steps_per_eval_image % ds.images.shape[0]
         gen = torch.Generator(device=self.device).manual_seed(step)
-        out = self.pipeline.render_camera_outputs(ds, int(idx), gen, spp=16)
-        m = eval_image_metrics(out["rgb"], ds.images[idx], is_hdr=ds.is_hdr)
+        with self.pipeline.lock:
+            out = self.pipeline.render_camera_outputs(ds, int(idx), gen, spp=16)
+            if not self.is_main:
+                return
+            m = eval_image_metrics(out["rgb"], ds.images[idx], is_hdr=ds.is_hdr)
         self.writer.put_dict({f"eval/{k}": v for k, v in m.items()}, step)
         self.writer.put_image("eval/rgb", out["rgb"], step)
         if self.pipeline.sdf_state is not None:
@@ -178,10 +261,12 @@ class Trainer:
         return train_state_tree(p.nerf_state, p.model, p.nerf_tx)
 
     def save_checkpoint(self, step: int) -> None:
-        state = {"nerf": self._nerf_tree()}
-        if self.pipeline.sdf_state is not None:
-            state["sdf"] = self.pipeline.sdf_state
-        self.ckpt.save(step, state)
+        """Rank 0 writes `step`; every rank waits for the write."""
+        with self.pipeline.lock:
+            state = {"nerf": self._nerf_tree()}
+            if self.pipeline.sdf_state is not None:
+                state["sdf"] = self.pipeline.sdf_state
+            self.ckpt.save(step, state)
 
     def _set_nerf(self, tree: dict) -> None:
         p = self.pipeline

@@ -6,6 +6,12 @@ accumulation, rounds it to bf16 and adds the bias in bf16, as flax does;
 parameters stay f32 and the output is cast back to f32. The kernels'
 arithmetic differs (bias added in f32 before the bf16 rounding), which is
 why the reference compares the two paths at rtol 2e-2.
+
+The weight and bias gradients are rounded to bf16 too (the backward of
+the casts). A step split over ranks sets `defer_grad_rounding`: each rank's
+gradients are then its rows' f32 sums, which the step sums over the ranks
+and rounds to bf16 once (`round_to_bf16_`), as one rank rounds its sum; the
+forward is the same either way.
 """
 
 from __future__ import annotations
@@ -24,11 +30,26 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None
         return nn.init.trunc_normal_(weight, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
 
 
+def _bf16_straight_through(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16, as f32 (x + (r - x) is r exactly); the gradient
+    passes as it is, in f32, not rounded."""
+    return x + (x.to(torch.bfloat16).float() - x).detach()
+
+
+def round_to_bf16_(tensors) -> None:
+    """Round each tensor to bf16 in place (kept f32)."""
+    with torch.no_grad():
+        for t in tensors:
+            t.copy_(t.to(torch.bfloat16).float())
+
+
 class MLP(nn.Module):
     """num_layers Linear layers (hidden_0 .. hidden_{L-2}, out) of width
     layer_width with ReLU between them. Linear weights are (out, in), drawn
     from `generator` (on `device`) when one is given, else from torch's
     global generator."""
+
+    defer_grad_rounding = False  # see the module's docstring
 
     def __init__(self, in_dim: int, out_dim: int, num_layers: int = 3, layer_width: int = 64,
                  device=None, generator: torch.Generator | None = None):
@@ -50,8 +71,12 @@ class MLP(nn.Module):
         h = x.to(bf)
         layers = self.layers()
         for i, lin in enumerate(layers):
-            prod = (h.float() @ lin.weight.to(bf).float().T).to(bf)
-            h = prod + lin.bias.to(bf)
+            if self.defer_grad_rounding:
+                prod = (h.float() @ _bf16_straight_through(lin.weight).T).to(bf)
+                h = prod + _bf16_straight_through(lin.bias).expand(prod.shape).to(bf)
+            else:
+                prod = (h.float() @ lin.weight.to(bf).float().T).to(bf)
+                h = prod + lin.bias.to(bf)
             if i < len(layers) - 1:
                 h = torch.relu(h)
         return h.float()

@@ -29,11 +29,18 @@ modes for P2, `_plain_field_mlp`)
 that the wrappers use for CPU tensors only. Gradients of the query
 recompute through the staged query (ops/fused_field.py): K1 places the
 samples, whose own backward recomputes through its twin, and the field
-stage runs its twin directly.
+stage runs its twin directly. A query of more than RECOMPUTE_RAYS rays
+recomputes in chunks of exactly that many (the last padded), so that a
+ray's gradient does not depend on the batch it was asked in: a bin's last
+ulp moves the answer by ~0.1% at far = 4, and the recompute's reductions
+and matrix products round differently as their shapes change (past 2^31
+elements, at 2^17 rays, the answer moved by 1.9e-3 and the gradient by up
+to 30% against the same rays asked in halves).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import torch
@@ -58,6 +65,10 @@ from .samplers import spacing_piecewise as _spacing_pw
 from .samplers import spacing_piecewise_inv as _spacing_pw_inv
 
 TILE_RAYS = 128  # the query pads the ray count to whole 128-ray tiles
+RECOMPUTE_RAYS = 1 << 16  # rays a backward recomputes at once (_MegaQuery)
+# the rows that fill a recompute chunk: K5's own pad values
+_RECOMPUTE_PADS = {"origins": 0.0, "directions": 1.0, "pixel_area": 1e-4, "nears": 0.1, "fars": 0.2,
+                   "camera_indices": 0}
 _EPS = 1e-5  # sample_pdf eps
 _HIST_PAD = 0.01  # sample_pdf histogram_padding
 
@@ -415,14 +426,50 @@ class _MegaQuery(torch.autograd.Function):
     def backward(ctx, g):
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad[1:]
-        leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
-        o, d, near, far, *params = leaves
-        with torch.enable_grad():
-            rays = ctx.run.rays.replace(origins=o, directions=d, nears=near, fars=far)
-            out = ctx.run.staged(dict(zip(ctx.run.names, params)), rays, ctx.run.camera_index)
-        wanted = [t for t in leaves if t.requires_grad]
-        got = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
-        return (None, *[next(got) if t.requires_grad else None for t in leaves])
+        o, d, near, far, *params = saved
+        params = [t.detach().requires_grad_(n) for t, n in zip(params, need[4:])]
+        fields = {f.name: getattr(ctx.run.rays, f.name) for f in dataclasses.fields(ctx.run.rays)}
+        fields.update(origins=o, directions=d, nears=near, fars=far)
+        n = o.shape[0]
+        chunk = n if n <= RECOMPUTE_RAYS else RECOMPUTE_RAYS
+        ray_grads = [[] for _ in range(4)]
+        param_grads = [None] * len(params)
+        for start in range(0, n, chunk):
+            stop = min(start + chunk, n)
+            part = {k: None if v is None else _chunk_rows(v[start:stop], chunk, _RECOMPUTE_PADS.get(k))
+                    for k, v in fields.items()}
+            leaves = [part[k].detach().requires_grad_(nd)
+                      for k, nd in zip(("origins", "directions", "nears", "fars"), need[:4])]
+            with torch.enable_grad():
+                rays = type(ctx.run.rays)(**dict(part, origins=leaves[0], directions=leaves[1], nears=leaves[2],
+                                                 fars=leaves[3]))
+                out = ctx.run.staged(dict(zip(ctx.run.names, params)), rays, ctx.run.camera_index)
+            wanted = [t for t in leaves + params if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, _chunk_rows(g[start:stop], chunk, 0.0), allow_unused=True))
+            for i, t in enumerate(leaves):
+                if t.requires_grad:
+                    gi = next(got)
+                    ray_grads[i].append(torch.zeros_like(t[:stop - start]) if gi is None else gi[:stop - start])
+                else:
+                    ray_grads[i].append(None)
+            for i, t in enumerate(params):
+                if t.requires_grad:
+                    gi = next(got)
+                    param_grads[i] = gi if param_grads[i] is None else (param_grads[i] if gi is None
+                                                                         else param_grads[i] + gi)
+        rays_out = [torch.cat(r) if r[0] is not None else None for r in ray_grads]
+        return (None, *rays_out, *param_grads)
+
+
+def _chunk_rows(x: torch.Tensor, rows: int, fill) -> torch.Tensor:
+    """x (k <= rows, ...) filled up to `rows` rows with `fill` (None: the
+    last row repeated)."""
+    k = x.shape[0]
+    if k == rows:
+        return x
+    pad = (x[-1:].expand(rows - k, *x.shape[1:]) if fill is None
+           else torch.full((rows - k, *x.shape[1:]), fill, dtype=x.dtype, device=x.device))
+    return torch.cat([x, pad])
 
 
 class _MegaRun:

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import rand
+
 
 def composite_rgb(
     rgb: torch.Tensor,
@@ -29,7 +31,7 @@ def composite_rgb(
         bg = torch.zeros_like(comp)
     elif background_color == "random":
         if generator is not None and is_training:
-            bg = torch.rand(comp.shape, generator=generator, device=comp.device)
+            bg = rand(comp.shape, generator, comp.device)
         else:
             bg = torch.zeros_like(comp)
     else:

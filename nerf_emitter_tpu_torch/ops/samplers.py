@@ -2,7 +2,8 @@
 nerf_emitter_tpu/ops/samplers.py).
 
 `generator=None` is the deterministic serving mode (bin centres, the
-reference's key=None); a `torch.Generator` gives stratified samples.
+reference's key=None); a `torch.Generator` gives stratified samples (a
+parallel.mesh.RowGenerator: a rank's rows of the whole batch's draws).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..cameras.rays import RayBundle, RaySamples
+from ..parallel.mesh import rand
 
 # spacing functions: euclidean distance t -> warped s, and back
 
@@ -64,7 +66,7 @@ def spaced_sample(
     bins = bins.expand(n_rays, num_samples + 1)
     if generator is not None:
         shape = (n_rays, 1) if single_jitter else (n_rays, num_samples + 1)
-        jitter = torch.rand(shape, generator=generator, device=origins.device)
+        jitter = rand(shape, generator, origins.device)
         centers = (bins[..., 1:] + bins[..., :-1]) / 2.0
         upper = torch.cat([centers, bins[..., -1:]], dim=-1)
         lower = torch.cat([bins[..., :1], centers], dim=-1)
@@ -109,9 +111,9 @@ def sample_pdf(
     dev = cdf.device
     if generator is not None:
         shape = (n_rays, 1) if single_jitter else (n_rays, num_samples + 1)
-        rand = torch.rand(shape, generator=generator, device=dev) / (num_samples + 1)
+        offsets = rand(shape, generator, dev) / (num_samples + 1)
         u = torch.linspace(0.0, 1.0 - 1.0 / (num_samples + 1), num_samples + 1, device=dev)
-        u = u.expand(n_rays, num_samples + 1) + rand
+        u = u.expand(n_rays, num_samples + 1) + offsets
     else:
         u = torch.linspace(0.0, 1.0 - eps, num_samples + 1, device=dev) + 1.0 / (2 * (num_samples + 1))
         u = u.expand(n_rays, num_samples + 1)

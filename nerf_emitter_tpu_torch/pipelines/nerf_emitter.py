@@ -12,8 +12,12 @@ doubling the render size at the volume upsamples and decaying their lr,
 and swapping in the running means at the load-mean step.
 
 The pipeline draws its random numbers from a `torch.Generator` where the
-reference takes a JAX key; the multi-device path (`mesh`, `data_axis`) is
-not ported (ROADMAP.md, Queue 1 item 7).
+reference takes a JAX key. Across ranks (`mesh`, `data_axis`;
+parallel/mesh.py) the NeRF and SDF states are replicated: rank 0's are
+broadcast at the start, and what a rank computes on its own (the TSDF
+scene, the guiding mixture, the distilled student, the learned denoiser)
+is broadcast from rank 0 after it, so the replicas cannot drift; the
+steps and the views split their rays over the ranks.
 """
 
 from __future__ import annotations
@@ -34,9 +38,10 @@ from ..guiding.path_guiding import EmitterImageGuiding, EnvGuiding, VMFGuiding
 from ..models.nerfacto import NerfactoModel
 from ..ops.colliders import aabb_far_intersect_collider
 from ..ops.fused_field import named_params
+from ..parallel.mesh import Mesh, data_sharded, gather_rows, replicated, shard_axis, sum_gradients
 from ..renderer.emitters import VMFMixture
 from ..renderer.grid3d import sphere_sdf_grid, upsample_grid
-from ..renderer.integrator import RenderConfig, render_spp
+from ..renderer.integrator import RenderConfig, draw_direct, render_spp
 from ..renderer.learned_denoise import DenoiserConfig, apply_denoiser, fit_denoiser
 from ..renderer.optimize import SdfOptConfig
 from ..renderer.scene import SdfScene
@@ -46,6 +51,7 @@ from ..renderer.spp_schedule import bilateral_denoise, divide_spp
 from ..serving.distill import DistillConfig, distill_emitter, make_student_emitter_fn_of
 from ..utils import coords
 from ..utils.device import id_column
+from ..utils.locks import FairLock
 from . import tsdf
 from .sdf_optimizer import (SdfOptState, TakeoverConfig, build_sdf_optimizer, init_mean_params, load_mean_parameters,
                             make_sdf_train_step, post_step_host)
@@ -64,6 +70,45 @@ def serves_kernel_query(model, use_fused: bool) -> bool:
         and bool(model.use_fake_contraction)
         and model.device.type == "cuda"
     )
+
+
+# the reference's pad values for the rows that fill a ray batch up to a
+# multiple of the ranks (_shard_fused_query); None: the last row repeated
+_RAY_PADS = {"origins": 0.0, "directions": 1.0, "pixel_area": 1e-4, "nears": 0.1, "fars": 0.2,
+             "camera_indices": 0, "valid": None}
+
+
+def shard_fused_query(query, mesh: Optional[Mesh]):
+    """The kernel query split over the ranks by rows of the ray batch (the
+    reference's pad_scatter / pad_gather of emitter rays,
+    mitsuba_sdf.py:878-912; the JAX package's shard_map). The caller holds
+    a replicated batch: it is padded to a multiple of the world size with
+    the reference's pad values, each rank runs the kernel on its rows, the
+    rows are gathered and the padding dropped. The parameters' gradients
+    are summed over the ranks in the backward, so they equal the one-rank
+    gradient, as do the rays'."""
+    if mesh is None or mesh.world_size == 1:
+        return query
+
+    def sharded(params, rays: RayBundle, camera_index=None):
+        n = rays.origins.shape[0]
+        pad = (-n) % mesh.world_size
+
+        def rows(name):
+            x = getattr(rays, name)
+            if x is None:
+                return None
+            fill = _RAY_PADS[name]
+            if pad:
+                x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:]) if fill is None
+                               else torch.full((pad, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)])
+            return data_sharded(x, mesh)
+
+        local = RayBundle(**{f.name: rows(f.name) for f in dataclasses.fields(RayBundle)})
+        p = {k: sum_gradients(v, mesh) for k, v in named_params(params).items()}
+        return gather_rows(query(p, local, camera_index=camera_index), mesh, n)
+
+    return sharded
 
 
 def make_nerf_emitter_fn(
@@ -100,12 +145,12 @@ def make_nerf_emitter_fn(
       serves it;
     - `samples_override` = (proposal_0, proposal_1, nerf) replaces the
       per-ray sample schedule for the emitter query only; counts must be
-      multiples of 8.
-
-    The multi-device mesh path is a later slice.
+      multiples of 8;
+    - `mesh` and `data_axis`: the kernel query is split over the ranks by
+      rows (shard_fused_query). Give them only where every rank calls the
+      emitter with the same, replicated batch; rays that a sharded step
+      has already split are the rank's own and need no collective.
     """
-    if mesh is not None or data_axis is not None:
-        raise NotImplementedError("the multi-device query is not ported yet (ROADMAP.md, Queue 1 item 7)")
     if samples_override is not None:
         p0, p1, ns = samples_override
         if any(s % 8 != 0 for s in (p0, p1, ns)):
@@ -123,6 +168,8 @@ def make_nerf_emitter_fn(
             model, disable_box=tuple(tuple(float(x) for x in row) for row in box.tolist()),
             device=device,
         )
+        if mesh is not None and data_axis is not None:
+            fused_query = shard_fused_query(fused_query, mesh)
 
     def emitter_fn_of(params=None, camera_index=None, rot_id=None):
         p = named_params(model if params is None else params)
@@ -235,17 +282,19 @@ class NerfEmitterPipeline:
         mi_dataset: Optional[ImageDataset] = None,
         render_config: RenderConfig = RenderConfig(),
         rotater=None,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
         data_axis: Optional[str] = None,
     ):
-        if mesh is not None or data_axis is not None:
-            raise NotImplementedError("the multi-device pipeline is not ported yet (ROADMAP.md, Queue 1 item 7)")
         self.config = config
         self.model = model
         self.device = model.device
         self.rotater = rotater
+        # a mesh of one rank, or none, is the one-device pipeline
+        self.mesh = mesh if mesh is not None and data_axis is not None and mesh.world_size > 1 else None
+        self.data_axis = data_axis if self.mesh is not None else None
         self.train_config = dataclasses.replace(train_config, step_pretrain=config.takeover_step,
-                                                rotation_radius=config.rotation_radius)
+                                                rotation_radius=config.rotation_radius,
+                                                data_axis=self.data_axis)
         self.opt_config = opt_config
         self.dataset = dataset
         self.mi_dataset = mi_dataset if mi_dataset is not None else dataset
@@ -256,10 +305,18 @@ class NerfEmitterPipeline:
                                   mis_compensation=self.render_config.guiding_mis_compensation)
         self.data_dir = "."  # where guiding_type 'env' finds env.exr; the trainer sets it
         # the NeRF side
-        self.nerf_state, self.nerf_tx = create_train_state(model, self.train_config)
-        self.nerf_step_fn = make_train_step(model, self.train_config, self.nerf_tx, rotater=rotater)
+        self.nerf_state, self.nerf_tx = create_train_state(model, self.train_config, self.mesh)
+        self.nerf_step_fn = make_train_step(model, self.train_config, self.nerf_tx, mesh=self.mesh, rotater=rotater)
         self.render_fn = make_render_fn(model, self.train_config, rotater=rotater,
-                                        camera_rot_ids=dataset.rotation_ids)
+                                        camera_rot_ids=dataset.rotation_ids, mesh=self.mesh,
+                                        data_axis=self.data_axis)
+        # a view on this rank alone (the viewer's, on rank 0)
+        self._rank_render_fn = self.render_fn if self.mesh is None else make_render_fn(
+            model, self.train_config, rotater=rotater, camera_rot_ids=dataset.rotation_ids)
+        # held around every step, eval view and save by the trainer and
+        # around every render by the viewer's threads (viewer/server.py);
+        # first come, first served, so a render waits for one step at most
+        self.lock = FairLock()
         # the SDF side, from the takeover on
         self.sdf_state: Optional[SdfOptState] = None
         # the learned denoiser, fitted on first use (fit_scene_denoiser)
@@ -275,6 +332,10 @@ class NerfEmitterPipeline:
         self._emitter_fn_of = make_nerf_emitter_fn(model, config.scene_scale, self.object_aabb,
                                                    detach_nerf=config.no_update_nerf, rotater=rotater,
                                                    samples_override=config.emitter_samples)
+        # the distillation's teacher: every rank asks it the same batch
+        self._teacher_fn_of = self._emitter_fn_of if self.mesh is None else make_nerf_emitter_fn(
+            model, config.scene_scale, self.object_aabb, detach_nerf=config.no_update_nerf, rotater=rotater,
+            samples_override=config.emitter_samples, mesh=self.mesh, data_axis=self.data_axis)
 
     @property
     def _use_env(self) -> bool:
@@ -333,8 +394,9 @@ class NerfEmitterPipeline:
         self._lr_up_scale = {}
         self.sdf_tx = build_sdf_optimizer(self.opt_config)
         track_mean = self.config.load_mean_step != -1
-        self.sdf_state = SdfOptState(step=0, scene=scene, opt_state=self.sdf_tx.init(scene),
-                                     mean_params=init_mean_params(scene) if track_mean else None)
+        self.sdf_state = replicated(SdfOptState(step=0, scene=scene, opt_state=self.sdf_tx.init(scene),
+                                                mean_params=init_mean_params(scene) if track_mean else None),
+                                    self.mesh)
 
     def _bind_emitter(self, generator: torch.Generator) -> None:
         """The takeover's and the serving's emitter from the current NeRF:
@@ -379,10 +441,11 @@ class NerfEmitterPipeline:
             return self._emitter_fn_of
         n_rot = int(self.rotater.transforms.shape[0]) if self.rotater is not None else 1
         student, fidelity, _ = distill_emitter(
-            generator, self.model, self._emitter_fn_of, scene_scale=self.config.scene_scale,
+            generator, self.model, self._teacher_fn_of, scene_scale=self.config.scene_scale,
             object_aabb=self.object_aabb, num_cameras=int(self.model.num_cameras), rotater=self.rotater,
             n_rotations=n_rot, guiding=guiding, config=DistillConfig(steps=self.config.distill_steps),
             device=self.device)
+        replicated(student, self.mesh)
         self.distill_fidelity = fidelity
         print(f"distilled emitter cache: relRMS(linear)={fidelity['relrms_linear']:.4f} "
               f"RMSE(log)={fidelity['rmse_log']:.4f}")
@@ -475,7 +538,7 @@ class NerfEmitterPipeline:
             self.opt_config, takeover, self.sdf_tx, emitter_fn=self._takeover_emitter_fn,
             render_config=self.render_config, emitter_for_camera=self._takeover_emitter_for_camera,
             rotater=self.rotater, camera_rot_ids=self.mi_dataset.rotation_ids,
-            use_occlusion=self.occlusion is not None)
+            use_occlusion=self.occlusion is not None, mesh=self.mesh, data_axis=self.data_axis)
 
     def _maybe_upsample_render_res(self, mi_step: int) -> None:
         """Double the render size (up to the images') at the recipe's
@@ -496,7 +559,7 @@ class NerfEmitterPipeline:
         """The scene with its vMF guiding mixture rebuilt from the current
         NeRF."""
         vmf = self.guiding.build(generator, self.model, self.dataset.cameras, object_aabb=self.object_aabb)
-        return scene.replace(guiding=vmf)
+        return scene.replace(guiding=replicated(vmf, self.mesh))
 
     # ---- the takeover
 
@@ -551,7 +614,7 @@ class NerfEmitterPipeline:
 
     @torch.no_grad()
     def render_camera_outputs(self, dataset: ImageDataset, cam_index: int, generator: torch.Generator,
-                              spp: int = 64, spp_per_batch: int = 64, denoise=False) -> dict:
+                              spp: int = 64, spp_per_batch: int = 64, denoise=False, collective: bool = True) -> dict:
         """A view of `dataset`: before the takeover the NeRF's render, after
         it the SDF scene's, lit by the full NeRF query (not the distilled
         cache) unless an envmap relights it. spp is rendered in
@@ -560,11 +623,16 @@ class NerfEmitterPipeline:
         the joint bilateral filter; 'learned': the per-scene learned
         denoiser (renderer/learned_denoise.py), fitted on first use by
         fit_scene_denoiser from a generator seeded 17 and applied with the
-        first spp batch's normal and depth."""
+        first spp batch's normal and depth. With a mesh each rank renders its
+        rows of the pixel rays (the whole view's draws, cut to its rows) and
+        the rows are gathered; collective=False renders the whole view on
+        this rank alone (every rank must call the collective view)."""
         cams = dataset.cameras
         if self.sdf_state is None:
-            return self.render_fn(cams, cam_index, cams.height, cams.width)
+            render_fn = self.render_fn if collective else self._rank_render_fn
+            return render_fn(cams, cam_index, cams.height, cams.width)
         h, w = cams.height, cams.width
+        mesh = self.mesh if collective else None
         rot_ids = dataset.rotation_ids
         rid = rot_ids[cam_index] if (self.rotater is not None and rot_ids is not None) else None
         emitter = (self._emitter_fn_of(self.model, camera_index=cam_index, rot_id=rid)
@@ -572,10 +640,18 @@ class NerfEmitterPipeline:
         o, d = camera_rays_in_render_space(cams, cam_index, h, w, self.config.scene_scale, rotater=self.rotater,
                                            rot_id=rid)
         serve_cfg = dataclasses.replace(self.render_config, reparam="soft")
+        scene, n = self.sdf_state.scene, h * w
+        o_l, d_l = data_sharded(o, mesh), data_sharded(d, mesh)
         rgb, first = None, None
         for chunk_spp in divide_spp(spp, max(1, spp_per_batch)):
-            out = render_spp(self.sdf_state.scene, o, d, chunk_spp, generator, emitter_fn=emitter,
+            draws = None
+            if mesh is not None:
+                draws = draw_direct(scene, n, generator, o.device, lead=(chunk_spp,)).map(
+                    lambda t: shard_axis(t, mesh, 1))
+            out = render_spp(scene, o_l, d_l, chunk_spp, generator, draws=draws, emitter_fn=emitter,
                              config=serve_cfg, remat=False)
+            if mesh is not None:
+                out = {k: gather_rows(out[k], mesh, n) for k in ("rgb", "depth", "normal", "soft_mask")}
             first = out if first is None else first
             part = out["rgb"] * (chunk_spp / spp)
             rgb = part if rgb is None else rgb + part
@@ -606,6 +682,7 @@ class NerfEmitterPipeline:
                                                denoise=False) for j in (0, 1))
             pairs.append((a["rgb"], b["rgb"], a["normal"], a["depth"]))
         self._denoiser_params, loss = fit_denoiser(fold_in(generator, 2 * n_views), pairs, config)
+        replicated(self._denoiser_params, self.mesh)
         self._denoiser_config = config
         return loss
 

@@ -13,7 +13,15 @@ backward, and the gradients accumulate: memory stays bounded by one band's
 attached render, and the sum is the whole batch's gradient. The step draws
 its random numbers from a `torch.Generator`, or takes them as a list of
 `ImageDraws` (one per image), so a test can hand it another package's
-draws. The multi-device path is not ported (ROADMAP.md, Queue 1 item 7).
+draws.
+
+Across ranks (`mesh`, parallel/mesh.py) every rank draws the whole
+step's random numbers, renders its rows of each image's pixel rays (in the
+detached chunks and in the attached bands, the draws cut to the same
+rows) and gathers the rows, so the view and mask losses are the batch's
+means on every rank; the gradients, each rank's from its own rows, are
+summed over the ranks, and the Laplacian on the replicated grid adds its
+gradient on rank 0 alone, so that it counts once.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch.nn.functional as F
 
 from ..cameras.cameras import Cameras
 from ..ops import losses as L
+from ..parallel.mesh import Mesh, all_reduce_grads, data_sharded, gather_rows, shard_axis
 from ..renderer.integrator import EmitterFn, RenderConfig, draw_direct, render_curvature, render_spp
 from ..renderer.optimize import (GradientTransform, SdfOptConfig, adam, chain, laplacian_reg, maybe_upsample,
                                  sobolev_preconditioner, uniform_adam, validate_gradients, validate_params)
@@ -165,7 +174,10 @@ class SdfTrainStep:
     each chunk one slice of chunk_spp samples), then spp_attached attached
     samples in `n_grad_bands` bands of `band_h` rows: the bands double
     until pixels x spp_attached per band fit NERF_EMITTER_GRAD_BAND_BUDGET
-    (default 128 * 128 * 16), read when the step is built."""
+    (default 128 * 128 * 16), read when the step is built.
+
+    mesh + data_axis split every render's rays over the ranks (see the
+    module's docstring); the step then equals the one-rank step."""
 
     def __init__(
         self,
@@ -174,15 +186,14 @@ class SdfTrainStep:
         tx: SdfOptimizer,
         emitter_fn: Optional[EmitterFn] = None,
         render_config: RenderConfig = RenderConfig(),
-        mesh=None,
+        mesh: Optional[Mesh] = None,
         data_axis: Optional[str] = None,
         emitter_for_camera: Optional[Callable] = None,
         rotater=None,
         camera_rot_ids: Optional[torch.Tensor] = None,
         use_occlusion: bool = False,
     ):
-        if mesh is not None or data_axis is not None:
-            raise NotImplementedError("the multi-device takeover step is not ported yet (ROADMAP.md, Queue 1 item 7)")
+        self.mesh = mesh if mesh is not None and data_axis is not None and mesh.world_size > 1 else None
         self.opt_config, self.takeover, self.tx = opt_config, takeover, tx
         self.emitter_fn, self.render_config = emitter_fn, render_config
         self.emitter_for_camera, self.rotater, self.camera_rot_ids = emitter_for_camera, rotater, camera_rot_ids
@@ -245,6 +256,26 @@ class SdfTrainStep:
                            curv_jitter=[u2() for _ in range(self.n_grad_bands)])
                 for _ in range(batch)]
 
+    def _render_rows(self, scene, o, d, spp, draws, em, spp_per_batch, keys=("rgb", "soft_mask")):
+        """render_spp of the rays o, d (n, 3) with their (spp, n)-leading
+        draws; with a mesh, of this rank's rows, gathered."""
+        if self.mesh is None:
+            return render_spp(scene, o, d, spp, draws=draws, emitter_fn=em, config=self.render_config,
+                              spp_per_batch=spp_per_batch)
+        n, mesh = o.shape[0], self.mesh
+        out = render_spp(scene, data_sharded(o, mesh), data_sharded(d, mesh), spp,
+                         draws=draws.map(lambda x: shard_axis(x, mesh, 1)), emitter_fn=em,
+                         config=self.render_config, spp_per_batch=spp_per_batch)
+        return {k: gather_rows(out[k], mesh, n) for k in keys}
+
+    def _curvature(self, scene, o, d):
+        if self.mesh is None:
+            return render_curvature(scene, o, d, self.render_config,
+                                    curvature_epsilon=self.opt_config.curvature_epsilon)
+        c = render_curvature(scene, data_sharded(o, self.mesh), data_sharded(d, self.mesh), self.render_config,
+                             curvature_epsilon=self.opt_config.curvature_epsilon)
+        return gather_rows(c, self.mesh, o.shape[0])
+
     def _band_loss(self, scene, cameras, cam_idx, em, o, d, det_sum, gt, mask, occ, band, dr: ImageDraws):
         """The loss terms of one band of rows of one image, each weighted by
         the band's share of the rows (the terms then sum to the image's)."""
@@ -252,8 +283,7 @@ class SdfTrainStep:
         h, w = t.image_height, t.image_width
         band_h = self.band_h
         rows = slice(band * band_h * w, (band + 1) * band_h * w)
-        out = render_spp(scene, o[rows], d[rows], self.band_spp, draws=dr.bands[band], emitter_fn=em, config=cfg,
-                         spp_per_batch=t.spp_per_batch)
+        out = self._render_rows(scene, o[rows], d[rows], self.band_spp, dr.bands[band], em, t.spp_per_batch)
         pred = out["rgb"]
         if self.aggregate:
             # the primal is the full-spp mean; the gradient flows through
@@ -276,9 +306,10 @@ class SdfTrainStep:
         view_loss = self.loss_fn_rgb(pred, gt_b) * frac
         mask_loss = torch.mean(mask_weight * (soft - mask_b) ** 2) * frac
         oc, dc = self._rays(cameras, cam_idx, dr.curv_jitter[band])
-        curv = frac * torch.mean(render_curvature(scene, oc[rows], dc[rows], cfg,
-                                                  curvature_epsilon=self.opt_config.curvature_epsilon))
+        curv = frac * torch.mean(self._curvature(scene, oc[rows], dc[rows]))
         lap = frac * laplacian_reg(scene.sdf)
+        if self.mesh is not None and not self.mesh.is_main:
+            lap = lap.detach()  # a term of the replicated grid: its gradient is rank 0's alone
         # the reference's exact mode reports a mask loss of 0 when it is
         # off; its aggregate mode reports it anyway
         use_mask = t.use_mask_loss or self.aggregate
@@ -321,8 +352,7 @@ class SdfTrainStep:
                 det_sum = torch.zeros((h * w, 3), device=o.device)
                 with torch.no_grad():
                     for c, cd in zip(self.chunks, dr.chunks):
-                        det_sum = det_sum + render_spp(scene, o, d, c, draws=cd, emitter_fn=em,
-                                                       config=self.render_config, spp_per_batch=c)["rgb"] * c
+                        det_sum = det_sum + self._render_rows(scene, o, d, c, cd, em, c, keys=("rgb",))["rgb"] * c
             gt, mask = resize_image(gt_images[i], h, w), resize_image(gt_masks[i], h, w)
             occ = None if occ_layers is None else tuple(x[i] for x in occ_layers)
             for band in range(self.n_grad_bands):
@@ -333,6 +363,11 @@ class SdfTrainStep:
                         grads[k] = g if grads[k] is None else grads[k] + g
                 m = {k: v.detach() for k, v in m.items()}
                 metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
+        if self.mesh is not None:
+            for k, g in grads.items():
+                params[k].grad = g
+            all_reduce_grads([params[k] for k in OPTIMIZED_VARS], self.mesh)
+            grads = {k: params[k].grad for k in OPTIMIZED_VARS}
         grads = {k: torch.zeros_like(params[k]) if g is None else g / b for k, g in grads.items()}
         return grads, {k: v / b for k, v in metrics.items()}
 

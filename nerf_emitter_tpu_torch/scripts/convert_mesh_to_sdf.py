@@ -83,9 +83,13 @@ def sign_by_parity(pts: np.ndarray, verts: np.ndarray, faces: np.ndarray) -> np.
 
 
 def mesh_to_sdf(verts: np.ndarray, faces: np.ndarray, resolution: int, offset: float = 0.0,
-                device="cpu") -> np.ndarray:
-    """(r, r, r, 1) float32 SDF of the mesh on the nodes i / (r - 1)."""
+                device=None) -> np.ndarray:
+    """(r, r, r, 1) float32 SDF of the mesh on the nodes i / (r - 1), on
+    `device` (None: CUDA; no CUDA device is an error)."""
     from ..renderer.optimize import redistance
+    from ..utils.device import resolve_device
+
+    device = resolve_device(device)
 
     r = resolution
     xs = np.linspace(0, 1, r, dtype=np.float32)

@@ -85,9 +85,9 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
 
 
-def write_png(path, image: np.ndarray) -> Path:
-    """(H, W) or (H, W, 1|2|3|4) float [0, 1] or uint8 -> an 8-bit PNG
-    (every row filter 0)."""
+def encode_png(image: np.ndarray) -> bytes:
+    """(H, W) or (H, W, 1|2|3|4) float [0, 1] or uint8 -> the bytes of an
+    8-bit PNG (every row filter 0)."""
     img = to_uint8(image)
     if img.ndim == 2:
         img = img[..., None]
@@ -95,9 +95,14 @@ def write_png(path, image: np.ndarray) -> Path:
     color = {1: 0, 2: 4, 3: 2, 4: 6}[c]
     raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1).tobytes()
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
+    return (_PNG_SIGNATURE + _png_chunk(b"IHDR", ihdr) + _png_chunk(b"IDAT", zlib.compress(raw, 6))
+            + _png_chunk(b"IEND", b""))
+
+
+def write_png(path, image: np.ndarray) -> Path:
+    """encode_png(image) written to `path`."""
     path = Path(path)
-    path.write_bytes(_PNG_SIGNATURE + _png_chunk(b"IHDR", ihdr) + _png_chunk(b"IDAT", zlib.compress(raw, 6))
-                     + _png_chunk(b"IEND", b""))
+    path.write_bytes(encode_png(image))
     return path
 
 

@@ -5,7 +5,8 @@ Scalars are buffered per step and flushed as one row of
 `<log_dir>/events.jsonl` ({"step", "ts", name: value, ...}); images are
 written as EXR files under `<log_dir>/images/`. TensorBoard is used when
 `torch.utils.tensorboard` imports, else skipped. The standard event names
-are the reference's.
+are the reference's. A writer made with enabled=False (every rank but 0
+of a run across ranks) writes, creates and prints nothing.
 """
 
 from __future__ import annotations
@@ -33,13 +34,17 @@ def _numpy(value) -> np.ndarray:
 
 
 class EventWriter:
-    def __init__(self, log_dir: Path, use_tensorboard: bool = True, console_every: int = 50):
+    def __init__(self, log_dir: Path, use_tensorboard: bool = True, console_every: int = 50, enabled: bool = True):
         self.log_dir = Path(log_dir)
-        self.log_dir.mkdir(parents=True, exist_ok=True)
-        self._jsonl = open(self.log_dir / "events.jsonl", "a")
+        self.enabled = enabled
         self._console_every = console_every
         self._buffer: dict[int, dict] = defaultdict(dict)
         self._tb = None
+        self._jsonl = None
+        if not enabled:
+            return
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self._jsonl = open(self.log_dir / "events.jsonl", "a")
         if use_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -49,6 +54,8 @@ class EventWriter:
                 self._tb = SummaryWriter(log_dir=str(self.log_dir / "tb"))
 
     def put_scalar(self, name: str, value, step: int) -> None:
+        if not self.enabled:
+            return
         v = float(_numpy(value))
         self._buffer[step][name] = v
         if self._tb is not None:
@@ -61,6 +68,8 @@ class EventWriter:
                 self.put_scalar(prefix + k, arr, step)
 
     def put_image(self, name: str, image, step: int) -> None:
+        if not self.enabled:
+            return
         arr = _numpy(image).astype(np.float32)
         if self._tb is not None:
             self._tb.add_image(name, arr, step, dataformats="HWC")
@@ -69,6 +78,8 @@ class EventWriter:
         exr.write_exr(out, arr)
 
     def flush(self, step: Optional[int] = None) -> None:
+        if not self.enabled:
+            return
         steps = [step] if step is not None else sorted(self._buffer)
         for s in steps:
             if self._buffer.get(s):
@@ -77,11 +88,13 @@ class EventWriter:
         self._jsonl.flush()
 
     def maybe_print(self, step: int, metrics: dict) -> None:
-        if step % self._console_every == 0:
+        if self.enabled and step % self._console_every == 0:
             parts = " ".join(f"{k}={float(_numpy(v)):.4g}" for k, v in metrics.items() if _numpy(v).ndim == 0)
             print(f"[{time.strftime('%H:%M:%S')}] step {step}: {parts}", flush=True)
 
     def close(self) -> None:
+        if not self.enabled:
+            return
         self.flush()
         self._jsonl.close()
         if self._tb is not None:

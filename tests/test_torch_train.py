@@ -32,6 +32,7 @@ from nerf_emitter_tpu_torch.engine import optimizers as TO
 from nerf_emitter_tpu_torch.engine import schedulers as TS
 from nerf_emitter_tpu_torch.engine import train_loop as TT
 from nerf_emitter_tpu_torch.models.nerfacto import NerfactoModel
+from nerf_emitter_tpu_torch.parallel.mesh import make_mesh
 from test_torch_hash import AABB, TINY, _both, _rays_np, hash_pair
 
 torch.set_num_threads(1)
@@ -117,8 +118,10 @@ def test_train_config_matches_jax():
     """The same fields with the same defaults."""
     ref = {f.name: f.default for f in dataclasses.fields(JT.TrainConfig)}
     assert {f.name: f.default for f in dataclasses.fields(TT.TrainConfig)} == ref
-    with pytest.raises(NotImplementedError):
-        TT.create_train_state(NerfactoModel(AABB, device="cpu", **TINY), TT.TrainConfig(data_axis="data"))
+    # without a process group the mesh is one rank: the state is the one-rank state
+    state, _ = TT.create_train_state(NerfactoModel(AABB, device="cpu", **TINY), TT.TrainConfig(data_axis="data"),
+                                     make_mesh(device_type="cpu"))
+    assert state.step == 0
 
 
 @pytest.mark.parametrize("kw", [
