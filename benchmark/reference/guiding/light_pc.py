@@ -1,0 +1,78 @@
+"""Light point-cloud extraction from the NeRF (port of
+nerf_emitter_tpu/guiding/light_pc.py).
+
+Light-probe rays from the training cameras at 1/downscale resolution, or
+from a spherical rig, clipped with FAR2INF so the object box is skipped;
+per ray the model's `point_lights` (luminance, contrib depth, brightness
+gradient), chunked over rays by a Python loop. `compensate_pc` keeps the
+points brighter than the mean as emissive cluster candidates.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..cameras.cameras import Cameras, make_spherical_rig
+from ..data.scene_box import CropMode, SceneBox
+
+
+def extract_light_point_cloud(
+    model,
+    cameras: Cameras,
+    *,
+    object_aabb=None,
+    downscale: int = 4,
+    chunk: int = 4096,
+    use_spherical_rig: bool = False,
+    rig_center=None,
+    rig_res: tuple[int, int] = (512, 256),
+) -> dict[str, torch.Tensor]:
+    """Render light-probe rays -> points (M, 3) = o + d depth, luminance
+    (M,), rgb (M, 3), brightness_grad (M,), over all cameras x pixels in
+    row-major pixel order, from the model's own parameters (the reference's
+    `params` argument is the model here). Runs on the model's device; the
+    probes carry no autograd graph."""
+    dev = model.device
+    if use_spherical_rig:
+        center = torch.zeros(3, device=dev) if rig_center is None else torch.as_tensor(rig_center, device=dev)
+        cams = make_spherical_rig(center, width=rig_res[0], height=rig_res[1])
+    else:
+        cams = Cameras(
+            camera_to_worlds=cameras.camera_to_worlds.to(dev), fx=cameras.fx.to(dev) / downscale,
+            fy=cameras.fy.to(dev) / downscale, cx=cameras.cx.to(dev) / downscale,
+            cy=cameras.cy.to(dev) / downscale, width=cameras.width // downscale,
+            height=cameras.height // downscale, camera_type=cameras.camera_type,
+        )
+    h, w = cams.height, cams.width
+    box = None
+    if object_aabb is not None:
+        box = SceneBox(aabb=torch.as_tensor(object_aabb, dtype=torch.float32, device=dev),
+                       crop_mode=CropMode.FAR2INF)
+    yy, xx = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij")
+    coords = torch.stack([yy, xx], dim=-1).reshape(-1, 2)
+
+    outs = {"points": [], "luminance": [], "rgb": [], "brightness_grad": []}
+    with torch.no_grad():
+        for ci in range(len(cams)):
+            for start in range(0, coords.shape[0], chunk):
+                co = coords[start:start + chunk]
+                idx = torch.full((co.shape[0],), ci, dtype=torch.long, device=dev)
+                rays = cams.generate_rays(idx, co, nears=0.05, fars=1e3, aabb_box=box)
+                out = model.point_lights(rays)
+                outs["points"].append(rays.origins + rays.directions * out["depth"])
+                for k in ("luminance", "rgb", "brightness_grad"):
+                    outs[k].append(out[k])
+    return {k: torch.cat(v) for k, v in outs.items()}
+
+
+def compensate_pc(points: torch.Tensor, luminance: torch.Tensor, max_points: int = 32768,
+                  mean_mult: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """weights = max(lum - mean_mult mean(lum), 0); keep the `max_points`
+    heaviest (ties in any order). Returns (points (M, 3), weights (M,)),
+    padded with zero-weight points when fewer are bright."""
+    w = torch.clamp(luminance - mean_mult * torch.mean(luminance), min=0.0)
+    m = min(max_points, w.shape[0])
+    top_w, top_i = torch.topk(w, m)
+    return points[top_i], top_w
