@@ -1,0 +1,12 @@
+"""guiding_idle_ms_per_step: the time the device was idle while the port's
+span `takeover.guiding` (the guiding rebuild) was open on the host, in the
+traced guiding period, over its steps, in ms."""
+
+
+def read(r):
+    if r.get("kind") != "takeover" or not r.get("device_events") or not r.get("steps"):
+        return None
+    s = (r.get("program_spans") or {}).get("takeover.guiding")
+    if s is None:
+        return None
+    return 1e3 * s["idle_s"] / r["steps"]

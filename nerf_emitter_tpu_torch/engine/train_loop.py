@@ -29,6 +29,7 @@ from ..fields.mlp import MLP, round_to_bf16_
 from ..models.nerfacto import NerfactoModel
 from ..ops import losses as L
 from ..parallel.mesh import Mesh, all_reduce_grads, data_sharded, gather_rows, replicated, row_generator
+from ..utils import profiler
 from ..utils.math import linear_to_srgb, mape, psnr, ssim
 from ..utils.perceptual import lpips
 from .optimizers import MultiOptimizer, OptimizerGroupConfig, build_optimizer
@@ -193,20 +194,24 @@ def make_train_step(model: NerfactoModel, config: TrainConfig, optimizer: MultiO
                 bf16_params += [p for lin in m.layers() for p in (lin.weight, lin.bias) if p.requires_grad]
     anneal_fn = proposal_anneal_schedule(config.anneal_steps, config.anneal_slope)
 
+    @profiler.span("nerf.step")
     def train_step(state: TrainState, dataset: ImageDataset, generator: torch.Generator) -> dict:
-        cam, coords, gt, mask = sample_pixel_batch(generator, dataset.images, config.num_rays_per_batch,
-                                                   masks=dataset.masks, masked_sampling=config.masked_sampling)
-        rays = generate_train_rays(dataset.cameras, cam, coords, generator, near=config.near, far=config.far)
-        with torch.enable_grad():  # a step trains whatever the caller's grad mode
+        with profiler.span("nerf.batch"):
+            cam, coords, gt, mask = sample_pixel_batch(generator, dataset.images, config.num_rays_per_batch,
+                                                       masks=dataset.masks, masked_sampling=config.masked_sampling)
+            rays = generate_train_rays(dataset.cameras, cam, coords, generator, near=config.near, far=config.far)
+        # a step trains whatever the caller's grad mode
+        with torch.enable_grad(), profiler.span("nerf.forward_backward"):
             total, metrics = nerfacto_loss(
                 model, config, rays, gt, mask, generator=generator, proposal_anneal=anneal_fn(state.step),
                 rotater=rotater, camera_rot_ids=dataset.rotation_ids, mesh=mesh,
             )
             optimizer.zero_grad()
             total.backward()
-        all_reduce_grads(params, mesh)
-        round_to_bf16_([p.grad for p in bf16_params if p.grad is not None])
-        optimizer.step()
+        with profiler.span("nerf.optimizer"):
+            all_reduce_grads(params, mesh)
+            round_to_bf16_([p.grad for p in bf16_params if p.grad is not None])
+            optimizer.step()
         state.step += 1
         return metrics
 

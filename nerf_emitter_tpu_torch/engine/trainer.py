@@ -188,9 +188,18 @@ class Trainer:
             self.viewer_server.server_close()
             self.viewer_server = None
 
-    @profiler.time_function
     def train(self, start_step: int = 0) -> None:
-        """The train loop; start_step > 0 resumes mid-schedule."""
+        """The train loop; start_step > 0 resumes mid-schedule. The port's
+        tracing (utils/profiler) is on while it runs: its summary is
+        printed at exit."""
+        was_on = profiler.enabled()
+        profiler.enable()
+        try:
+            self._train(start_step)
+        finally:
+            profiler.enable(was_on)
+
+    def _train(self, start_step: int) -> None:
         cfg = self.config
         # written only by train: the eval and render tools build a Trainer
         # from a loaded config and must not overwrite the run's

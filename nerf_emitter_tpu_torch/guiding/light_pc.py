@@ -16,6 +16,7 @@ import torch
 
 from ..cameras.cameras import Cameras, make_spherical_rig
 from ..data.scene_box import CropMode, SceneBox
+from ..utils import profiler
 
 
 def extract_light_point_cloud(
@@ -54,10 +55,11 @@ def extract_light_point_cloud(
     coords = torch.stack([yy, xx], dim=-1).reshape(-1, 2)
 
     outs = {"points": [], "luminance": [], "rgb": [], "brightness_grad": []}
-    with torch.no_grad():
+    with torch.no_grad(), profiler.span("guiding.probes"):
         for ci in range(len(cams)):
             for start in range(0, coords.shape[0], chunk):
                 co = coords[start:start + chunk]
+                profiler.count("guiding.probe_rays", co.shape[0])
                 idx = torch.full((co.shape[0],), ci, dtype=torch.long, device=dev)
                 rays = cams.generate_rays(idx, co, nears=0.05, fars=1e3, aabb_box=box)
                 out = model.point_lights(rays)

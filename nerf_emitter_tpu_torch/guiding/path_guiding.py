@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..renderer.emitters import EnvmapEmitter, VMFMixture
-from ..utils import coords, exr
+from ..utils import coords, exr, profiler
 from .gmm import fit_spherical_gmm
 from .light_pc import compensate_pc, extract_light_point_cloud
 
@@ -54,11 +54,12 @@ class VMFGuiding:
         pc = extract_light_point_cloud(model, cameras, object_aabb=object_aabb,
                                        downscale=self.downscale,
                                        use_spherical_rig=self.use_spherical_rig)
-        pts, w = compensate_pc(pc["points"], pc["luminance"], self.max_points,
-                               mean_mult=1.0 if self.mis_compensation else 0.0)
-        pts_unit = coords.world_to_unit(pts, self.scene_scale)
-        means, pis, stds = fit_spherical_gmm(generator, pts_unit, w, self.n_clusters, seed_idx=seed_idx)
-        return VMFMixture(positions=means, weights=pis, stds=torch.clamp(stds, min=1e-3))
+        with profiler.span("guiding.fit"):
+            pts, w = compensate_pc(pc["points"], pc["luminance"], self.max_points,
+                                   mean_mult=1.0 if self.mis_compensation else 0.0)
+            pts_unit = coords.world_to_unit(pts, self.scene_scale)
+            means, pis, stds = fit_spherical_gmm(generator, pts_unit, w, self.n_clusters, seed_idx=seed_idx)
+            return VMFMixture(positions=means, weights=pis, stds=torch.clamp(stds, min=1e-3))
 
     def should_rebuild(self, mi_step: int) -> bool:
         return mi_step % self.rebuild_every == 0

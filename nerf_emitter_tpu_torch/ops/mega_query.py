@@ -46,6 +46,7 @@ import os
 import torch
 
 from .. import kernels
+from ..utils import profiler
 from .fused_field import (
     _QueryConfig,
     _contract_and_select,
@@ -423,6 +424,7 @@ class _MegaQuery(torch.autograd.Function):
         return run.forward(dict(zip(run.names, params)), origins, directions, nears, fars)
 
     @staticmethod
+    @profiler.span("emitter.backward")
     def backward(ctx, g):
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad[1:]
@@ -432,6 +434,9 @@ class _MegaQuery(torch.autograd.Function):
         fields.update(origins=o, directions=d, nears=near, fars=far)
         n = o.shape[0]
         chunk = n if n <= RECOMPUTE_RAYS else RECOMPUTE_RAYS
+        chunks = -(-n // chunk)
+        profiler.count("emitter.recompute_chunks", chunks)
+        profiler.count("emitter.recompute_rays", chunks * chunk)
         ray_grads = [[] for _ in range(4)]
         param_grads = [None] * len(params)
         for start in range(0, n, chunk):

@@ -49,7 +49,7 @@ from ..renderer.sensors import camera_rays_in_render_space
 from ..renderer.sphere_trace import clear_march_graphs
 from ..renderer.spp_schedule import bilateral_denoise, divide_spp
 from ..serving.distill import DistillConfig, distill_emitter, make_student_emitter_fn_of
-from ..utils import coords
+from ..utils import coords, profiler
 from ..utils.device import id_column
 from ..utils.locks import FairLock
 from . import tsdf
@@ -555,6 +555,7 @@ class NerfEmitterPipeline:
         print(f"takeover render res -> {new_size}, spp {self._takeover_spp}")
         self._rebuild_sdf_step_fn()
 
+    @profiler.span("takeover.guiding")
     def build_emitter_proposal(self, generator: torch.Generator, scene: SdfScene) -> SdfScene:
         """The scene with its vMF guiding mixture rebuilt from the current
         NeRF."""
@@ -563,6 +564,7 @@ class NerfEmitterPipeline:
 
     # ---- the takeover
 
+    @profiler.span("takeover.step")
     def takeover_iteration(self, generator: torch.Generator, *, cam_idx: Optional[torch.Tensor] = None,
                            draws: Optional[list] = None) -> dict:
         """One takeover step: the schedule's render size, the guiding
@@ -587,18 +589,20 @@ class NerfEmitterPipeline:
         if self.occlusion is not None:
             occ = (self.occlusion.occlusion_rgb[cam_idx], self.occlusion.occlusion_mask[cam_idx],
                    self.occlusion.background_rgb[cam_idx])
-        self.sdf_state, metrics = self.sdf_step_fn(self.sdf_state, ds.cameras, cam_idx, gt, masks, generator,
-                                                   draws=draws, occ_layers=occ)
-        pre_shape = self.sdf_state.scene.sdf.shape
-        self.sdf_state = post_step_host(self.sdf_state, self.opt_config, self.sdf_tx)
-        if self.sdf_state.scene.sdf.shape != pre_shape:
-            clear_march_graphs()  # the graphs of the replaced grid
-            self._apply_volume_upsample_lr_decay()
-        lm = self.config.load_mean_step
-        if lm is None:
-            lm = self.config.mi_opt_steps - 1
-        if lm >= 0 and mi_step == lm:
-            self.sdf_state = load_mean_parameters(self.sdf_state)
+        with profiler.span("takeover.sdf_step"):
+            self.sdf_state, metrics = self.sdf_step_fn(self.sdf_state, ds.cameras, cam_idx, gt, masks, generator,
+                                                       draws=draws, occ_layers=occ)
+        with profiler.span("takeover.post_step_host"):
+            pre_shape = self.sdf_state.scene.sdf.shape
+            self.sdf_state = post_step_host(self.sdf_state, self.opt_config, self.sdf_tx)
+            if self.sdf_state.scene.sdf.shape != pre_shape:
+                clear_march_graphs()  # the graphs of the replaced grid
+                self._apply_volume_upsample_lr_decay()
+            lm = self.config.load_mean_step
+            if lm is None:
+                lm = self.config.mi_opt_steps - 1
+            if lm >= 0 and mi_step == lm:
+                self.sdf_state = load_mean_parameters(self.sdf_state)
         return metrics
 
     # ---- serving

@@ -42,6 +42,7 @@ from ..renderer.optimize import (GradientTransform, SdfOptConfig, adam, chain, l
 from ..renderer.scene import SdfScene
 from ..renderer.sensors import camera_rays_in_render_space
 from ..renderer.spp_schedule import divide_spp
+from ..utils import profiler
 
 OPTIMIZED_VARS = ("sdf", "albedo", "roughness")
 
@@ -350,17 +351,19 @@ class SdfTrainStep:
             det_sum = None
             if self.aggregate:
                 det_sum = torch.zeros((h * w, 3), device=o.device)
-                with torch.no_grad():
+                with torch.no_grad(), profiler.span("sdf.detached"):
                     for c, cd in zip(self.chunks, dr.chunks):
                         det_sum = det_sum + self._render_rows(scene, o, d, c, cd, em, c, keys=("rgb",))["rgb"] * c
             gt, mask = resize_image(gt_images[i], h, w), resize_image(gt_masks[i], h, w)
             occ = None if occ_layers is None else tuple(x[i] for x in occ_layers)
             for band in range(self.n_grad_bands):
-                total, m = self._band_loss(scene, cameras, cam_idx, em, o, d, det_sum, gt, mask, occ, band, dr)
-                gs = torch.autograd.grad(total, [params[k] for k in OPTIMIZED_VARS], allow_unused=True)
-                for k, g in zip(OPTIMIZED_VARS, gs):
-                    if g is not None:
-                        grads[k] = g if grads[k] is None else grads[k] + g
+                with profiler.span("sdf.band_forward"):
+                    total, m = self._band_loss(scene, cameras, cam_idx, em, o, d, det_sum, gt, mask, occ, band, dr)
+                with profiler.span("sdf.band_backward"):
+                    gs = torch.autograd.grad(total, [params[k] for k in OPTIMIZED_VARS], allow_unused=True)
+                    for k, g in zip(OPTIMIZED_VARS, gs):
+                        if g is not None:
+                            grads[k] = g if grads[k] is None else grads[k] + g
                 m = {k: v.detach() for k, v in m.items()}
                 metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
         if self.mesh is not None:
@@ -371,6 +374,7 @@ class SdfTrainStep:
         grads = {k: torch.zeros_like(params[k]) if g is None else g / b for k, g in grads.items()}
         return grads, {k: v / b for k, v in metrics.items()}
 
+    @profiler.span("sdf.apply")
     @torch.no_grad()
     def _apply(self, state: SdfOptState, grads: dict, metrics: dict):
         grads = validate_gradients(grads)

@@ -22,6 +22,7 @@ from typing import Callable, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..utils import profiler
 from ..utils.math import normalize
 from .bsdf import (cosine_sample_hemisphere, diffuse_eval, diffuse_pdf, principled_eval, principled_pdf,
                    principled_sample)
@@ -130,6 +131,32 @@ def _emitter_pdf(scene: SdfScene, x, d):
     return torch.full(x.shape[:-1], 1.0 / (4.0 * math.pi), device=x.device)
 
 
+def _in_backward() -> bool:
+    """Whether autograd is running a backward here (a checkpoint's
+    recompute, say)."""
+    return torch._C._current_graph_task_id() != -1
+
+
+def _count_asked(x: torch.Tensor, d: torch.Tensor) -> None:
+    """The tracing counters of one emitter call of n rows: emitter.rays (and
+    emitter.grad_rays where the rays carry a gradient) outside a backward,
+    emitter.rerun_rays inside one."""
+    n = x.shape[0]
+    if _in_backward():
+        profiler.count("emitter.rerun_rays", n)
+        return
+    profiler.count("emitter.rays", n)
+    if torch.is_grad_enabled() and (x.requires_grad or d.requires_grad):
+        profiler.count("emitter.grad_rays", n)
+
+
+def _count_used(kept: torch.Tensor) -> None:
+    """emitter.used_rays: the emitter's answers that the estimate keeps (a
+    sum on the device), outside a backward, as emitter.rays counts."""
+    if not _in_backward():
+        profiler.count("emitter.used_rays", kept.sum())
+
+
 def render_direct(
     scene: SdfScene,
     origins: torch.Tensor,
@@ -149,10 +176,14 @@ def render_direct(
     if draws is None:
         draws = draw_direct(scene, n_rays, generator, origins.device)
     use_warp = config.reparam == "warp"
+    count_used = emitter_fn is not None and profiler.enabled()
 
     def radiance(x, d):
         if emitter_fn is not None:
-            return emitter_fn(x, d)
+            with profiler.span("emitter.forward"):
+                if profiler.enabled():
+                    _count_asked(x, d)
+                return emitter_fn(x, d)
         if scene.envmap is not None:
             return scene.envmap.eval(d)
         return torch.zeros((*d.shape[:-1], 3), device=d.device)
@@ -200,6 +231,8 @@ def render_direct(
         f = _bsdf_eval(scene, x, n, wi, d_w)
         vis = visible(x_off, d_w)
         le = radiance(x_off, d_w)
+        if count_used:
+            _count_used(hit & vis)
         w = 2.0 / torch.clamp(pdf_e_d + pdf_b_d, min=1e-9)
         surface_rgb = torch.where(vis[:, None], f * le * w[:, None], 0.0)
         if jac_s is not None:
@@ -212,6 +245,8 @@ def render_direct(
         f_e = _bsdf_eval(scene, x, n, wi, d_e_w)
         vis_e = visible(x_off, d_e_w)
         le = radiance(x_off, d_e_w)
+        if count_used:
+            _count_used(hit & vis_e)
         w_mis_e = pdf_e / torch.clamp(pdf_e + pdf_e_b, min=1e-9)
         contrib_e = torch.where(vis_e[:, None], f_e * le * (w_mis_e / torch.clamp(pdf_e, min=1e-9))[:, None], 0.0)
         if jac_e is not None:
@@ -223,6 +258,8 @@ def render_direct(
         f_b = _bsdf_eval(scene, x, n, wi, d_b_w)
         vis_b = visible(x_off, d_b_w)
         lb = radiance(x_off, d_b_w)
+        if count_used:
+            _count_used(hit & vis_b)
         w_mis_b = pdf_b / torch.clamp(pdf_b + pdf_b_e, min=1e-9)
         contrib_b = torch.where(vis_b[:, None], f_b * lb * (w_mis_b / torch.clamp(pdf_b, min=1e-9))[:, None], 0.0)
         if jac_b is not None:
@@ -234,6 +271,8 @@ def render_direct(
         miss_rgb = torch.zeros((n_rays, 3), device=origins.device)
     else:
         miss_rgb = radiance(origins, dirs)
+        if count_used:
+            _count_used(~hit)
     rgb = torch.where(hit[:, None], surface_rgb, miss_rgb)
     if jac is not None:
         # the primary warp's area factor (primal 1) carries the silhouette

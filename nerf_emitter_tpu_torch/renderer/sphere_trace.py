@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import profiler
 from .grid3d import sdf_eval, sdf_eval_nearest, sdf_gradient
 
 
@@ -62,6 +63,7 @@ def _coarse_march(sdf, o, d, t0, t_exit, config: SphereTraceConfig):
     return t
 
 
+@profiler.span("render.march")
 @torch.no_grad()
 def _march(sdf, origins, directions, config: SphereTraceConfig, t_start=None):
     """-> (t (N,), hit (N,) bool, t_closest (N,)): the fixed-step march of

@@ -279,7 +279,11 @@ def test_train_cli_runs_checkpoints_and_resumes(cli_run):
     assert schedule == saved_schedule
     assert second.pipeline.sdf_state.step == 4 and second.pipeline.nerf_state.step == 3
     assert second.ckpt.steps() == [7]
-    assert "train_iteration" in profiler.summary()
+    # Trainer.train traces its run (the NeRF's and the takeover's steps) and
+    # leaves the library's tracing off
+    summary = profiler.summary()
+    assert "train_iteration" in summary and "nerf.step" in summary and "takeover.step" in summary
+    assert not profiler.enabled()
 
 
 def test_train_cli_restores_nerf_only_and_a_drifted_optimizer(cli_run):
@@ -320,13 +324,15 @@ def test_profiler_times_blocks_and_reports_on_stderr(capsys):
     summary printed at exit goes to standard error, so a program's last
     line of standard output stays its own."""
     profiler.enable(True)
+    try:
+        @profiler.time_function(name="test.fn")
+        def fn():
+            return 3
 
-    @profiler.time_function(name="test.fn")
-    def fn():
-        return 3
-
-    with profiler.time_block("test.block"):
-        assert fn() == 3
+        with profiler.time_block("test.block"):
+            assert fn() == 3
+    finally:
+        profiler.disable()
     assert profiler._STATS["test.fn"][0] >= 1 and profiler._STATS["test.block"][0] >= 1
     assert "test.block" in profiler.summary()
     profiler._print_summary()
