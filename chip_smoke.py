@@ -10,8 +10,11 @@ chain), answers 2^16 escaped emitter rays at the full width of the
 sdf-nerfacto `freq` model (random weights from --seed) through the default
 kernel query (K5), through the two-kernel query (K3 + K4) and through the
 staged query (K1 + K2), checks the answers against the model's plain
-forward, times a backward pass through the query at 2^14 rays (its gradient
-held against the model forward's), runs the three profiling entry points at
+forward, holds the vjp kernel (the query's backward for a frozen NeRF)
+against its plain version at 2^16 rays and at a part-filled group, times
+a backward pass through the query at 2^14 rays by both of its routes, the
+NeRF's parameters trained and frozen (each gradient held against the
+model forward's), runs the three profiling entry points at
 their own shapes, then the takeover's emitter as sdf-nerfacto ships it: K5
 at the gated and an overridden sample schedule, the `hash` model at
 bench.py's sizes, the turntable, the vMF guiding build, the distillation of
@@ -79,7 +82,7 @@ RENDER_RES, RENDER_SPP = 64, 4  # the render phase's view
 TAKEOVER_RECIPE = "diffuse-12-relativel1-hqq"
 # the port's kernels' entry functions (csrc/*.cu), as the profiler names them
 KERNEL_ENTRIES = ("density_kernel", "field_kernel", "proposal_kernel", "field_composite_kernel",
-                  "mega_pipeline_kernel", "field_mlp_kernel", "resample_kernel")
+                  "mega_pipeline_kernel", "field_mlp_kernel", "resample_kernel", "field_composite_vjp_kernel")
 
 
 def emit(obj) -> None:
@@ -1600,7 +1603,7 @@ def multi_gpu(dev, seed: int, *, world: int = 2, views: int = 16, res: int = 256
     rays (full width; loss rtol 1e-5, parameters rtol 2e-4, atol 1e-6:
     tests/test_multichip.py's bars); (b) one K5-lit takeover step at
     prod5f's shapes (size^2, `batch` images, spp `spp`, `spp_attached`
-    attached) at the same bars, with each rank's K5 and K1 launches; (c)
+    attached) at the same bars, with each rank's K5 and vjp launches; (c)
     the emitter query on `query_rays` replicated rays split over the ranks
     against K5 alone (max abs difference 1e-6: rows are independent), and
     on rank 0 the query's ray gradients at 2 x query_rays rays against the
@@ -1675,8 +1678,8 @@ def multi_gpu(dev, seed: int, *, world: int = 2, views: int = 16, res: int = 256
         "takeover_loss_rtol_1e-5": all(s["loss_rel_err"] <= 1e-5 for s in per_take),
         "takeover_params": all(s["params"]["within"] for s in per_take),
         "takeover_replicas_equal": all(s["replica_max_diff"] == 0.0 for s in per_take),
-        "takeover_k5_and_k1_on_every_rank": dev.type != "cuda" or all(
-            s["launches"].get("mega_pipeline", 0) >= 1 and s["launches"].get("fused_density", 0) >= 1
+        "takeover_k5_and_vjp_on_every_rank": dev.type != "cuda" or all(
+            s["launches"].get("mega_pipeline", 0) >= 1 and s["launches"].get("field_composite_vjp", 0) >= 1
             for s in per_take),
         "query_within_1e-6": all(r["query"]["max_abs_diff"] <= 1e-6 for r in ranks),
         "query_grad_rows_independent_of_the_batch": ranks[0]["query"]["grad_rows_vs_halves"]["max_abs_diff"] == 0.0,
@@ -1852,10 +1855,10 @@ def main() -> int:
     def first(t, m=ODD_RAYS):
         return t[:, :m].contiguous()
 
-    # K1 at both proposal levels, as the backward runs it (one launch each):
-    # 2^16 x 256 samples with F=4 and 2^16 x 96 samples with F=6; also on
-    # the first 1003 x 256 and 1003 x 96 rows (the latter ends in a
-    # part-filled pass) and 1003 rows (a part-filled warpgroup tile)
+    # K1 at both proposal levels, as the backward's recompute route runs it
+    # (one launch each): 2^16 x 256 samples with F=4 and 2^16 x 96 samples
+    # with F=6; also on the first 1003 x 256 and 1003 x 96 rows (the latter
+    # ends in a part-filled pass) and 1003 rows (a part-filled warpgroup tile)
     ws0, bs0 = ff._mlp_params(p, "proposal_0.mlp")
     ws1, bs1 = ff._mlp_params(p, "proposal_1.mlp")
     levels = [(torch.rand((3, n * s), generator=g, device=dev) * 3.2 - 1.6, ws, bs, dict(num_freqs=f, **cfg))
@@ -2065,7 +2068,52 @@ def main() -> int:
         design=design("mega_pipeline", "mega_pipeline_kernel", kernels.mega_pipeline_occupancy(s0, s1, s2),
                       kernels.mega_pipeline_smem_bytes(s0, s1, s2), rays=n),
     )
-    del sbins4, k34_4
+    del k34_4
+
+    # The vjp kernel (the query's backward for a frozen NeRF) on K3's bins
+    # of the main path's rays, given a random gradient at the answer,
+    # against its plain version (autograd through K4's twin on the same
+    # bins), at far = 1e3, at far = 4 and at far = 4 on the first 1003 rays
+    # (a part-filled group). Each of the four gradients is held by its
+    # relative L2 error and cosine: a flipped bf16 rounding moves a sample's
+    # gradient by up to its top octave's weight, so an elementwise bar
+    # cannot hold (reported). The first 1003 rays asked alone get their
+    # rows of the whole answer bit for bit (no sum across rays).
+    g_vjp = torch.randn((3, n), generator=g, device=dev)
+
+    def vjp_close(a, b):
+        out = {name: vectors_close(x, y, rel_l2=0.03, cos=0.999)
+                     | {"max_abs_err": float((x - y).abs().max()),
+                        "max_rel_err": float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))}
+               for name, x, y in zip(("o", "d", "near", "far"), a, b)}
+        return dict(out, within=all(c["within"] for c in out.values()),
+                    max_abs_err=max(c["max_abs_err"] for c in out.values()))
+
+    def vjp_checks(a, b):
+        with torch.no_grad():
+            a4 = mq.field_composite_vjp(sbins4, *rows4, g_vjp, emb, *field, **k4)
+            b4 = mq._plain_field_composite_vjp(sbins4, *rows4, g_vjp, emb, *field, **k4)
+            odd = [first(t) for t in (sbins4, *rows4, g_vjp)]
+            a_odd = mq.field_composite_vjp(*odd, emb, *field, **k4)
+            b_odd = mq._plain_field_composite_vjp(*odd, emb, *field, **k4)
+        alone = [bool(torch.equal(first(x), y)) for x, y in zip(a4, a_odd)]
+        return {"far1e3": vjp_close(a, b), "far4": vjp_close(a4, b4), f"far4_{ODD_RAYS}_rays": vjp_close(a_odd, b_odd),
+                f"far4_{ODD_RAYS}_rays_alone_bitwise": dict(equal=alone, within=all(alone), max_abs_err=max(
+                    float((first(x) - y).abs().max()) for x, y in zip(a4, a_odd)))}
+
+    vjp_words = kernels.field_mask_words([w.shape for w in bws], [w.shape for w in hws])
+    kernel_phase(
+        "field_composite_vjp", "none: the JAX query's backward is jax.vjp through XLA "
+        "(nerf_emitter_tpu/ops/mega_query.py:746-755)",
+        "nerf_emitter_tpu_torch/csrc/field_composite_vjp.cu",
+        lambda: mq.field_composite_vjp(sbins, o_t, d_t, near_t, far_t, g_vjp, emb, *field, **k4),
+        lambda: mq._plain_field_composite_vjp(sbins, o_t, d_t, near_t, far_t, g_vjp, emb, *field, **k4),
+        vjp_checks, 2.0 * k4_flops, n * (s2 + 1 + 8 + 3 + 8) * 4.0, reps=3,
+        design=design("field_composite_vjp", "field_composite_vjp_kernel",
+                      kernels.field_composite_vjp_occupancy(s2, vjp_words),
+                      kernels.field_composite_vjp_smem_bytes(s2, vjp_words), rays=n),
+    )
+    del sbins4, g_vjp
 
     # ---- the wgmma field MLP of K4 and K5 alone (csrc/field_mlp.cu), on
     # the encodings of random scene points and the SH of random directions:
@@ -2259,11 +2307,12 @@ def main() -> int:
     del rgb_staged, full_rays
 
     # ---- phase 4: backward through the emitter w.r.t. the ray origins at
-    # 2^14 rays: K5 forward, then the staged recompute (K1 at both levels,
-    # the field through its twin, no K2). Timed forward alone and forward
-    # plus backward; a device trace of one forward plus backward splits it
-    # into K5, K1 and the rest (the twin recompute, sampling and autograd's
-    # PyTorch ops); peak memory of one forward plus backward.
+    # 2^14 rays, the NeRF's parameters trained: K5 forward, then the
+    # staged recompute (K1 at both levels, the field through its twin, no
+    # K2). Timed forward alone and forward plus backward; a device trace of
+    # one forward plus backward splits it into K5, K1 and the rest (the twin
+    # recompute, sampling and autograd's PyTorch ops); peak memory of one
+    # forward plus backward. Then with the NeRF frozen (the vjp route).
     nb = BACKWARD_RAYS
 
     def fwd_bwd():
@@ -2318,7 +2367,37 @@ def main() -> int:
               trace=bwd_trace))
     if not grad_far4["within"]:
         raise AssertionError(f"the query's gradient disagrees with the model forward's: {grad_far4}")
-    del emitter, two_emitter, plain, staged, grad
+
+    # The same backward with the NeRF frozen (detach_nerf, as the takeover's
+    # emitter): the vjp route, K3 and the vjp kernel after K5's forward and
+    # nothing else; timed forward plus backward, its peak memory, its
+    # gradient at far = 4 held against the model forward's at the same bars
+    frozen = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, detach_nerf=True)(camera_index=0)
+
+    def fwd_bwd_frozen():
+        x = x_unit[:nb].clone().requires_grad_()
+        with torch.enable_grad():
+            frozen(x, d[:nb]).sum().backward()
+        return x.grad
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    grad_frozen = fwd_bwd_frozen()
+    torch.cuda.synchronize()
+    frozen_launches = dict(kernels.launches)
+    frozen_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if frozen_launches != {"mega_pipeline": 1, "proposal": 1, "field_composite_vjp": 1}:
+        raise AssertionError(f"the frozen backward did not run K5, K3 and the vjp once each: {frozen_launches}")
+    frozen_ms = cuda_ms(fwd_bwd_frozen, 3)
+    g_frozen = x_grad(make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, far=4.0, detach_nerf=True)(camera_index=0))
+    g_plain = x_grad(make_nerf_emitter_fn(model, 1.0, OBJECT_BOX, far=4.0, use_fused=False)(camera_index=0))
+    frozen_far4 = vectors_close(g_frozen, g_plain, rel_l2=0.35, cos=0.9)
+    emit(dict(phase="backward_frozen", rays=nb, launches=frozen_launches, forward_backward_ms=frozen_ms,
+              peak_mem_gb=frozen_peak_gb, grad_finite=bool(torch.isfinite(grad_frozen).all()),
+              grad_vs_model_far4=frozen_far4))
+    if not frozen_far4["within"] or not torch.isfinite(grad_frozen).all():
+        raise AssertionError(f"the frozen query's gradient disagrees with the model forward's: {frozen_far4}")
+    del emitter, two_emitter, plain, staged, grad, frozen, grad_frozen, g_frozen, g_plain
     torch.cuda.empty_cache()
 
     # ---- phase 5: the profiling kernels against their twins. K3's bins
@@ -2669,8 +2748,8 @@ def main() -> int:
     bad = [k for k, c in take_checks.items() if not (c["within"] if isinstance(c, dict) else c)]
     if bad:
         raise AssertionError(f"takeover: failed checks {bad}: {take_checks}")
-    if take_launches.get("mega_pipeline", 0) < 1 or take_launches.get("fused_density", 0) < 1:
-        raise AssertionError(f"the K5-lit takeover step did not run K5 and K1: {take_launches}")
+    if take_launches.get("mega_pipeline", 0) < 1 or take_launches.get("field_composite_vjp", 0) < 1:
+        raise AssertionError(f"the K5-lit takeover step did not run K5 and the vjp: {take_launches}")
     del student
     torch.cuda.empty_cache()
 
@@ -2740,7 +2819,7 @@ def main() -> int:
 
     # ---- phase 13c: the end-task tools (`endtask`): gen_data, the
     # sdf-nerfacto run with the emitter pinned to K5 (K5 and, in the
-    # takeover's backward, K1), eval (NVS and relit), every render
+    # takeover's backward, K3 and the vjp), eval (NVS and relit), every render
     # subcommand, the exporter and chamfer, held against the CPU and float64
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as end_root:
@@ -2749,8 +2828,8 @@ def main() -> int:
         bad = [k for k, c in end_checks.items() if not c["within"]]
         if bad:
             raise AssertionError(f"endtask: failed checks {bad}: {end_checks}")
-        if end_launches.get("mega_pipeline", 0) < 1 or end_launches.get("fused_density", 0) < 1:
-            raise AssertionError(f"the end-task path did not run K5 and K1: {end_launches}")
+        if end_launches.get("mega_pipeline", 0) < 1 or end_launches.get("field_composite_vjp", 0) < 1:
+            raise AssertionError(f"the end-task path did not run K5 and the vjp: {end_launches}")
 
         # ---- phase 13d: the learned denoiser (`denoise`) on the endtask
         # run's K5-lit renders: the fit through the render CLI and through
@@ -2799,23 +2878,27 @@ def main() -> int:
     # (phase 13c), the learned denoiser's renders (phase 13d), the viewer's
     # renders (phase 13e) and the ranks' takeover step and query (phase
     # 13f); K3 and K4 the two-kernel query (phases 3 and 13); K2 the
-    # staged query; K1 the backward (phase 4), the staged query and the
-    # K5-lit takeovers (phases 12c, 13c and 13f); the
+    # staged query; K1 the backward with the NeRF's parameters trained
+    # (phase 4) and the staged query; K3 and the vjp kernel the backward
+    # with the NeRF frozen (phase 4) and the K5-lit takeovers (phases 12c,
+    # 13c and 13f); the
     # field MLP alone its own phase (one launch at the field's shape); P1-P3
     # the profiling scripts (phase 6). Each reports its launches in the
     # runs of its own paths.
     # `launches` sums a kernel's paths; `launches_by_path` splits them.
     path_of = {"mega_pipeline": ["query", "schedules", "turntable", "distill", "render", "takeover", "train",
                                  "pipeline", "endtask", "denoise", "viewer", "multi_gpu"],
-               "proposal": ["two_kernel_query", "train"], "field_mlp": ["field_mlp"],
-               "field_composite": ["two_kernel_query", "train"],
-               "fused_density": ["backward", "staged_query", "takeover", "endtask", "multi_gpu"],
+               "proposal": ["two_kernel_query", "train", "backward_frozen", "takeover", "endtask", "multi_gpu"],
+               "field_mlp": ["field_mlp"], "field_composite": ["two_kernel_query", "train"],
+               "fused_density": ["backward", "staged_query"],
+               "field_composite_vjp": ["backward_frozen", "takeover", "endtask", "multi_gpu"],
                "fused_field": ["staged_query"], "profile_query.kernel_a": ["profile_query"],
                "profile_query.kernel_b": ["profile_query"]}
     path_of |= {f"proposal_variant[{m}]": ["profile_kernel_a"] for m in mq.PROPOSAL_MODES}
     path_of |= {f"resample[{f}]": ["profile_resample"] for f in rs.FORMS}
     counted_as = {"profile_query.kernel_a": "proposal", "profile_query.kernel_b": "field_composite"}
     counts = {"query": fwd_launches, "two_kernel_query": two_launches, "backward": bwd_launches,
+              "backward_frozen": frozen_launches,
               "staged_query": staged_launches, "field_mlp": mlp_launches, "schedules": sched_launches,
               "turntable": tt_launches, "distill": distill_launches, "render": render_launches,
               "takeover": take_launches, "train": train_k5 | train_two, "pipeline": pipe_launches,

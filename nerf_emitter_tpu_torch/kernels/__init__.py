@@ -40,6 +40,7 @@ SOURCES = {
     "mega_pipeline": "mega_pipeline.cu",
     "field_mlp": "field_mlp.cu",
     "resample": "resample.cu",
+    "field_composite_vjp": "field_composite_vjp.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -59,6 +60,8 @@ SIGNATURES = {
                       _P, _P, _P],
     "field_mlp": [_P, _I, _P, _P, _I, _LL, *_MLP, _I, _P, _P],
     "resample": [_I, _P, _P, _P, _LL, _I, _I, _I, _P, _P],
+    "field_composite_vjp": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, *_MLP, _P, _PF, _I, _I, _I, _F, _P, _P, _P, _P,
+                            _P],
 }
 SIGNATURES["proposal_variant"] = [_I, *SIGNATURES["proposal"]]
 
@@ -165,6 +168,12 @@ def proposal_occupancy(s0: int, s1: int, s2: int) -> tuple[int, int, int]:
 def field_composite_occupancy(s2: int) -> tuple[int, int, int]:
     """The same for K4 at s2 samples per ray."""
     return _occupancy("field_composite", s2)
+
+
+def field_composite_vjp_occupancy(s2: int, mask_words: int) -> tuple[int, int, int]:
+    """The same for the field/composite vjp at s2 samples per ray and
+    `mask_words` (`field_mask_words`)."""
+    return _occupancy("field_composite_vjp", s2, mask_words)
 
 
 def fused_density_occupancy() -> tuple[int, int, int]:
@@ -439,6 +448,23 @@ def field_composite_smem_bytes(s2: int) -> int:
     """K4's dynamic shared memory (field_composite.cu): the field stage and
     per ray its euclidean bins, densities, colours and o, d."""
     return field_smem_bytes() + 4 * FIELD_RAYS * ((s2 + 1) + 4 * s2 + 6)
+
+
+VJP_MAX_SAMPLES = 128  # the vjp kernel's s2: a ray spans at most two passes
+
+
+def field_mask_words(base_shapes, head_shapes) -> int:
+    """Words of ReLU mask the vjp kernel keeps per thread for a pass of the
+    field of these (in, out) layer shapes: every hidden layer's n / 64."""
+    return sum(int(s[1]) // 64 for mlp in (base_shapes, head_shapes) for s in list(mlp)[:-1])
+
+
+def field_composite_vjp_smem_bytes(s2: int, mask_words: int) -> int:
+    """The vjp kernel's (field_composite_vjp.cu): K4's field stage, the
+    masks of two passes, per ray its euclidean bins and o, d, s_near, s_far,
+    per sample its density, colour, their gradients' and its delta's,
+    position's and SH direction's gradients, and a flags byte."""
+    return field_smem_bytes() + 2 * mask_words * 256 * 4 + 4 * FIELD_RAYS * ((s2 + 1) + 8 + 11 * s2) + FIELD_RAYS * s2
 
 
 def mega_pipeline_smem_bytes(s0: int, s1: int, s2: int) -> int:

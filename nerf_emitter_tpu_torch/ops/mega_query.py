@@ -12,6 +12,9 @@ out for profiling.
     csrc/field_mlp.cuh, which `field_mlp` runs alone on given rows.
   K5: K3 then K4 per ray group in one launch; the bins stay in shared
     memory. csrc/mega_pipeline.cu.
+  The vjp (`field_composite_vjp`): K4 transposed, the query's backward
+    for a frozen NeRF: bins, rays and the gradient at the answer -> the
+    gradients of o, d, near and far. csrc/field_composite_vjp.cu.
 
 The rays' o, d, near, far are the only per-ray inputs; between K3 and K4
 only the (s2+1, N) spacing bins cross device memory. Sampling is the
@@ -25,17 +28,24 @@ function without that cancellation.
 
 Each kernel has a plain PyTorch twin (`_plain_proposal`,
 `_plain_field_composite`, `_plain_mega_pipeline`, `_plain_proposal`'s
-modes for P2, `_plain_field_mlp`)
-that the wrappers use for CPU tensors only. Gradients of the query
-recompute through the staged query (ops/fused_field.py): K1 places the
-samples, whose own backward recomputes through its twin, and the field
-stage runs its twin directly. A query of more than RECOMPUTE_RAYS rays
-recomputes in chunks of exactly that many (the last padded), so that a
-ray's gradient does not depend on the batch it was asked in: a bin's last
-ulp moves the answer by ~0.1% at far = 4, and the recompute's reductions
-and matrix products round differently as their shapes change (past 2^31
-elements, at 2^17 rays, the answer moved by 1.9e-3 and the gradient by up
-to 30% against the same rays asked in halves).
+modes for P2, `_plain_field_mlp`, `_plain_field_composite_vjp`)
+that the wrappers use for CPU tensors only.
+
+The query's backward takes one of two routes, by what autograd asks of it.
+When no NeRF parameter needs a gradient (the takeover's frozen emitter) it
+is two launches: K3 places the bins K5's forward used, and the vjp kernel
+differentiates the field and the composite on them; the bins are
+constants (the resample stops the gradient at the weights). Otherwise,
+for the weight gradients, it recomputes through the staged query
+(ops/fused_field.py): K1 places the samples, whose own backward recomputes
+through its twin, and the field stage runs its twin directly. A query of
+more than RECOMPUTE_RAYS rays recomputes in chunks of exactly that many
+(the last padded), so that a ray's gradient does not depend on the batch
+it was asked in: a bin's last ulp moves the answer by ~0.1% at far = 4,
+and the recompute's reductions and matrix products round differently as
+their shapes change (past 2^31 elements, at 2^17 rays, the answer moved by
+1.9e-3 and the gradient by up to 30% against the same rays asked in
+halves). The vjp kernel works ray by ray, so it needs no chunks.
 """
 
 from __future__ import annotations
@@ -271,6 +281,53 @@ def field_composite(sbins, o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs, *, 
 
 
 # ---------------------------------------------------------------------------
+# the vjp: K4 transposed, the backward for a frozen NeRF
+# ---------------------------------------------------------------------------
+
+
+def _plain_field_composite_vjp(sbins, o_t, d_t, near_t, far_t, g_t, emb, bws, bbs, hws, hbs, **kw):
+    """Twin of the vjp kernel: autograd through `_plain_field_composite`
+    at the given bins, a constant, with the field frozen: the gradients of
+    o_t, d_t (3, N) and near_t, far_t (1, N) given g_t (3, N) at the
+    answer."""
+    rays = [t.detach().requires_grad_() for t in (o_t, d_t, near_t, far_t)]
+    frozen = [[t.detach() for t in ts] for ts in (bws, bbs, hws, hbs)]
+    with torch.enable_grad():
+        out = _plain_field_composite(sbins.detach(), *rays, emb.detach(), *frozen, **kw)
+    return torch.autograd.grad(out, rays, g_t)
+
+
+def field_composite_vjp(sbins, o_t, d_t, near_t, far_t, g_t, emb, bws, bbs, hws, hbs, *, s2, freqs,
+                        aabb_lo, aabb_inv_ext, disable_box, avg_density, hdr, rgb_bias):
+    """The vjp kernel: spacing bins (s2+1, N), rays (3, N) / (1, N), the
+    gradient g_t (3, N) reaching K4's answer on those bins, one appearance
+    vector (E,) -> the gradients of o_t, d_t (3, N), near_t and far_t
+    (1, N), the field's weights frozen (no gradient of theirs is made).
+    Weights are (in, out) with f-major first-layer rows in the base MLP.
+    The twin serves CPU tensors; a CUDA tensor launches the kernel."""
+    kw = dict(s2=s2, freqs=freqs, aabb_lo=aabb_lo, aabb_inv_ext=aabb_inv_ext,
+              disable_box=disable_box, avg_density=avg_density, hdr=hdr, rgb_bias=rgb_bias)
+    if o_t.device.type == "cpu":
+        return _plain_field_composite_vjp(sbins, o_t, d_t, near_t, far_t, g_t, emb, bws, bbs, hws, hbs, **kw)
+    n = o_t.shape[1]
+    kernels.check_tensor(sbins, "sbins", ndim=2, rows=s2 + 1, cols=n)
+    kernels.check_tensor(g_t, "g_t", ndim=2, rows=3, cols=n)
+    field = _check_field(o_t, d_t, near_t, far_t, emb, bws, bbs, hws, hbs)
+    # the base output's density column as the bf16 values the field uses
+    w0 = bws[-1][:, 0].detach().to(torch.bfloat16).float().contiguous()
+    outs = [torch.empty(rows, n, dtype=torch.float32, device=o_t.device) for rows in (3, 3, 1, 1)]
+    kernels.launch(
+        "field_composite_vjp",
+        kernels.ptr(sbins), kernels.ptr(o_t), kernels.ptr(d_t), kernels.ptr(near_t), kernels.ptr(far_t),
+        kernels.ptr(g_t), kernels.ptr(emb), kernels.i32(emb.shape[0]), kernels.i64(n), *field.args(),
+        kernels.ptr(w0), kernels.box_consts(aabb_lo, aabb_inv_ext, disable_box, avg_density),
+        kernels.i32(freqs), kernels.i32(s2), kernels.i32(int(hdr)), kernels.f32(rgb_bias),
+        *[kernels.ptr(t) for t in outs],
+    )
+    return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
 # K5: the whole query in one launch
 # ---------------------------------------------------------------------------
 
@@ -327,16 +384,21 @@ def mega_pipeline(o_t, d_t, near_t, far_t, emb, ws0, bs0, ws1, bs1, bws, bbs, hw
 
 
 def check_query_shapes(p: dict, s0: int, s1: int, s2: int) -> None:
-    """Raise ValueError unless K3, K4 and K5 take the model of named
-    parameters `p` at these sample counts: the wgmma field takes its widths
-    (`kernels.check_field_widths`) and the kernels' shared memory fits a
-    block. (The proposal MLPs' widths are checked with the staged query's,
-    `check_staged_shapes`.)"""
+    """Raise ValueError unless K3, K4, K5 and the vjp kernel take the model
+    of named parameters `p` at these sample counts: the wgmma field takes
+    its widths (`kernels.check_field_widths`), the vjp at most
+    `kernels.VJP_MAX_SAMPLES` samples a ray, and the kernels' shared memory
+    fits a block. (The proposal MLPs' widths are checked with the staged
+    query's, `check_staged_shapes`.)"""
     shapes = {k: [w.shape for w in _mlp_params(p, k)[0]] for k in ("field.base_mlp", "field.head_mlp")}
     kernels.check_field_widths(shapes["field.base_mlp"], shapes["field.head_mlp"])
+    if s2 > kernels.VJP_MAX_SAMPLES:
+        raise ValueError(f"the vjp kernel takes at most {kernels.VJP_MAX_SAMPLES} samples a ray, got {s2}")
+    words = kernels.field_mask_words(shapes["field.base_mlp"], shapes["field.head_mlp"])
     for name, need in (("K3", kernels.proposal_smem_bytes(s0, s1, s2)),
                        ("K4", kernels.field_composite_smem_bytes(s2)),
-                       ("K5", kernels.mega_pipeline_smem_bytes(s0, s1, s2))):
+                       ("K5", kernels.mega_pipeline_smem_bytes(s0, s1, s2)),
+                       ("the vjp kernel", kernels.field_composite_vjp_smem_bytes(s2, words))):
         if need > kernels.SMEM_LIMIT:
             raise ValueError(f"{name} needs {need} bytes of shared memory at samples "
                              f"({s0}, {s1}, {s2}), more than a block's {kernels.SMEM_LIMIT}")
@@ -411,7 +473,9 @@ def launch_field_mlp(pack, xb, sh, emb, depth, out=None):
 
 
 class _MegaQuery(torch.autograd.Function):
-    """Forward through K5 or K3 + K4; backward recomputes through the
+    """Forward through K5 or K3 + K4. The backward's route follows what
+    autograd asks: with no NeRF parameter needing a gradient, `run.vjp`
+    (K3's bins, then the vjp kernel); otherwise the recompute through the
     staged query (the reference's custom_vjp), with K1 placing the samples
     and the field stage through its twin (`run.staged` is the staged
     query's `recompute`): K2's output would go unread there, as the
@@ -426,44 +490,53 @@ class _MegaQuery(torch.autograd.Function):
     @staticmethod
     @profiler.span("emitter.backward")
     def backward(ctx, g):
-        saved = ctx.saved_tensors
         need = ctx.needs_input_grad[1:]
-        o, d, near, far, *params = saved
-        params = [t.detach().requires_grad_(n) for t, n in zip(params, need[4:])]
-        fields = {f.name: getattr(ctx.run.rays, f.name) for f in dataclasses.fields(ctx.run.rays)}
-        fields.update(origins=o, directions=d, nears=near, fars=far)
-        n = o.shape[0]
-        chunk = n if n <= RECOMPUTE_RAYS else RECOMPUTE_RAYS
-        chunks = -(-n // chunk)
-        profiler.count("emitter.recompute_chunks", chunks)
-        profiler.count("emitter.recompute_rays", chunks * chunk)
-        ray_grads = [[] for _ in range(4)]
-        param_grads = [None] * len(params)
-        for start in range(0, n, chunk):
-            stop = min(start + chunk, n)
-            part = {k: None if v is None else _chunk_rows(v[start:stop], chunk, _RECOMPUTE_PADS.get(k))
-                    for k, v in fields.items()}
-            leaves = [part[k].detach().requires_grad_(nd)
-                      for k, nd in zip(("origins", "directions", "nears", "fars"), need[:4])]
-            with torch.enable_grad():
-                rays = type(ctx.run.rays)(**dict(part, origins=leaves[0], directions=leaves[1], nears=leaves[2],
-                                                 fars=leaves[3]))
-                out = ctx.run.staged(dict(zip(ctx.run.names, params)), rays, ctx.run.camera_index)
-            wanted = [t for t in leaves + params if t.requires_grad]
-            got = iter(torch.autograd.grad(out, wanted, _chunk_rows(g[start:stop], chunk, 0.0), allow_unused=True))
-            for i, t in enumerate(leaves):
-                if t.requires_grad:
-                    gi = next(got)
-                    ray_grads[i].append(torch.zeros_like(t[:stop - start]) if gi is None else gi[:stop - start])
-                else:
-                    ray_grads[i].append(None)
-            for i, t in enumerate(params):
-                if t.requires_grad:
-                    gi = next(got)
-                    param_grads[i] = gi if param_grads[i] is None else (param_grads[i] if gi is None
-                                                                         else param_grads[i] + gi)
-        rays_out = [torch.cat(r) if r[0] is not None else None for r in ray_grads]
-        return (None, *rays_out, *param_grads)
+        o, d, near, far, *params = ctx.saved_tensors
+        if any(need[4:]):
+            return (None, *_recompute_grads(ctx, g, need, (o, d, near, far), params))
+        profiler.count("emitter.vjp_rays", o.shape[0])
+        grads = ctx.run.vjp(dict(zip(ctx.run.names, params)), o, d, near, far, g)
+        return (None, *[gi if nd else None for gi, nd in zip(grads, need[:4])], *[None] * len(params))
+
+
+def _recompute_grads(ctx, g, need, ray_inputs, params):
+    """The gradients of the rays and the parameters, by autograd through the
+    staged query recomputed in RECOMPUTE_RAYS-ray chunks."""
+    params = [t.detach().requires_grad_(n) for t, n in zip(params, need[4:])]
+    fields = {f.name: getattr(ctx.run.rays, f.name) for f in dataclasses.fields(ctx.run.rays)}
+    fields.update(zip(("origins", "directions", "nears", "fars"), ray_inputs))
+    n = ray_inputs[0].shape[0]
+    chunk = n if n <= RECOMPUTE_RAYS else RECOMPUTE_RAYS
+    chunks = -(-n // chunk)
+    profiler.count("emitter.recompute_chunks", chunks)
+    profiler.count("emitter.recompute_rays", chunks * chunk)
+    ray_grads = [[] for _ in range(4)]
+    param_grads = [None] * len(params)
+    for start in range(0, n, chunk):
+        stop = min(start + chunk, n)
+        part = {k: None if v is None else _chunk_rows(v[start:stop], chunk, _RECOMPUTE_PADS.get(k))
+                for k, v in fields.items()}
+        leaves = [part[k].detach().requires_grad_(nd)
+                  for k, nd in zip(("origins", "directions", "nears", "fars"), need[:4])]
+        with torch.enable_grad():
+            rays = type(ctx.run.rays)(**dict(part, origins=leaves[0], directions=leaves[1], nears=leaves[2],
+                                             fars=leaves[3]))
+            out = ctx.run.staged(dict(zip(ctx.run.names, params)), rays, ctx.run.camera_index)
+        wanted = [t for t in leaves + params if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, _chunk_rows(g[start:stop], chunk, 0.0), allow_unused=True))
+        for i, t in enumerate(leaves):
+            if t.requires_grad:
+                gi = next(got)
+                ray_grads[i].append(torch.zeros_like(t[:stop - start]) if gi is None else gi[:stop - start])
+            else:
+                ray_grads[i].append(None)
+        for i, t in enumerate(params):
+            if t.requires_grad:
+                gi = next(got)
+                param_grads[i] = gi if param_grads[i] is None else (param_grads[i] if gi is None
+                                                                     else param_grads[i] + gi)
+    rays_out = [torch.cat(r) if r[0] is not None else None for r in ray_grads]
+    return (*rays_out, *param_grads)
 
 
 def _chunk_rows(x: torch.Tensor, rows: int, fill) -> torch.Tensor:
@@ -480,8 +553,8 @@ def _chunk_rows(x: torch.Tensor, rows: int, fill) -> torch.Tensor:
 class _MegaRun:
     """One query call's state, handed to the autograd Function."""
 
-    def __init__(self, forward, staged, names, rays, camera_index):
-        self.forward, self.staged, self.names = forward, staged, names
+    def __init__(self, forward, vjp, staged, names, rays, camera_index):
+        self.forward, self.vjp, self.staged, self.names = forward, vjp, staged, names
         self.rays, self.camera_index = rays, camera_index
 
 
@@ -520,10 +593,11 @@ def make_mega_radiance_query(model, *, disable_box=None, pipelined=None, mxu_chu
     environment after the query is built does not change it. The query
     carries the values it was built with as `.pipelined` and `.mxu_chunk`.
     A field whose widths the wgmma field does not take, or sample counts
-    whose shared memory does not fit a block, raise ValueError here
-    (`check_query_shapes`); so does a proposal MLP that K1, which the
-    backward runs, does not take (the staged query's
-    `check_staged_shapes`). `device=None` means CUDA."""
+    that the vjp kernel does not take or whose shared memory does not fit a
+    block, raise ValueError here (`check_query_shapes`); so does a proposal
+    MLP that K1, which the recompute route of the backward runs, does not
+    take (the staged query's `check_staged_shapes`). `device=None` means
+    CUDA."""
     pipelined, mxu_chunk = _switches(pipelined, mxu_chunk)
     cfg = _QueryConfig(model, disable_box, device)
     s0, s1 = cfg.n_prop
@@ -533,36 +607,60 @@ def make_mega_radiance_query(model, *, disable_box=None, pipelined=None, mxu_chu
     kw = dict(aabb_lo=cfg.aabb_lo, aabb_inv_ext=cfg.aabb_inv_ext, disable_box=cfg.dbox,
               avg_density=1.0)
 
+    def weights(p, camera_index, dev):
+        """The kernels' weights: both proposal MLPs and the field with
+        f-major first-layer rows, their octave counts, the appearance
+        vector."""
+        ws0, bs0 = _mlp_params(p, "proposal_0.mlp")
+        ws1, bs1 = _mlp_params(p, "proposal_1.mlp")
+        bws, bbs = _mlp_params(p, "field.base_mlp")
+        hws, hbs = _mlp_params(p, "field.head_mlp")
+        f0, f1, ff = _freqs_of(ws0[0]), _freqs_of(ws1[0]), _freqs_of(bws[0])
+        props = (permute_first(ws0, f0), bs0, permute_first(ws1, f1), bs1)
+        field = (permute_first(bws, ff), bbs, hws, hbs)
+        emb = cfg.embedding(p, camera_index, dev).contiguous()
+        return props, field, emb, dict(freqs0=f0, freqs1=f1), ff
+
+    def padded_rows(origins, directions, nears, fars):
+        """The rays in the kernels' (3, N) / (1, N) layout, padded to whole
+        128-ray tiles with K5's pad values."""
+        n_pad = -(-origins.shape[0] // TILE_RAYS) * TILE_RAYS
+        return (pad_rows(origins, n_pad, 0.0), pad_rows(directions, n_pad, 1.0),
+                pad_rows(nears, n_pad, 0.1), pad_rows(fars, n_pad, 0.2))
+
     def make_forward(camera_index):
         def forward(p, origins, directions, nears, fars):
-            n = origins.shape[0]
-            n_pad = -(-n // TILE_RAYS) * TILE_RAYS
-            rows = (pad_rows(origins, n_pad, 0.0), pad_rows(directions, n_pad, 1.0),
-                    pad_rows(nears, n_pad, 0.1), pad_rows(fars, n_pad, 0.2))
-            ws0, bs0 = _mlp_params(p, "proposal_0.mlp")
-            ws1, bs1 = _mlp_params(p, "proposal_1.mlp")
-            f0, f1 = _freqs_of(ws0[0]), _freqs_of(ws1[0])
-            props = (permute_first(ws0, f0), bs0, permute_first(ws1, f1), bs1)
-            bws, bbs = _mlp_params(p, "field.base_mlp")
-            hws, hbs = _mlp_params(p, "field.head_mlp")
-            ff = _freqs_of(bws[0])
-            field = (permute_first(bws, ff), bbs, hws, hbs)
-            emb = cfg.embedding(p, camera_index, origins.device).contiguous()
+            rows = padded_rows(origins, directions, nears, fars)
+            props, field, emb, fp, ff = weights(p, camera_index, origins.device)
             if pipelined:
-                rgb_t = mega_pipeline(*rows, emb, *props, *field, s0=s0, s1=s1, s2=s2, freqs0=f0,
-                                      freqs1=f1, freqs=ff, hdr=cfg.hdr, rgb_bias=cfg.rgb_bias,
-                                      mxu_chunk=mxu_chunk, **kw)
+                rgb_t = mega_pipeline(*rows, emb, *props, *field, s0=s0, s1=s1, s2=s2, **fp, freqs=ff,
+                                      hdr=cfg.hdr, rgb_bias=cfg.rgb_bias, mxu_chunk=mxu_chunk, **kw)
             else:
-                sbins = proposal_bins(*rows, *props, s0=s0, s1=s1, s2=s2, freqs0=f0, freqs1=f1, **kw)
+                sbins = proposal_bins(*rows, *props, s0=s0, s1=s1, s2=s2, **fp, **kw)
                 rgb_t = field_composite(sbins, *rows, emb, *field, s2=s2, freqs=ff, hdr=cfg.hdr,
                                         rgb_bias=cfg.rgb_bias, **kw)
-            return rgb_t[:, :n].T.contiguous()
+            return rgb_t[:, :origins.shape[0]].T.contiguous()
         return forward
+
+    def make_vjp(camera_index):
+        def vjp(p, origins, directions, nears, fars, g):
+            """The gradients of origins, directions, nears and fars given g
+            (n, 3) at the answer, the NeRF frozen: K3 places the bins (K5's
+            own), the vjp kernel differentiates the field and the
+            composite on them."""
+            rows = padded_rows(origins, directions, nears, fars)
+            props, field, emb, fp, ff = weights(p, camera_index, origins.device)
+            sbins = proposal_bins(*rows, *props, s0=s0, s1=s1, s2=s2, **fp, **kw)
+            grads = field_composite_vjp(sbins, *rows, pad_rows(g, rows[0].shape[1], 0.0), emb, *field, s2=s2,
+                                        freqs=ff, hdr=cfg.hdr, rgb_bias=cfg.rgb_bias, **kw)
+            return [t[:, :origins.shape[0]].T for t in grads]
+        return vjp
 
     def query(params_or_model, rays, camera_index=None):
         p = named_params(params_or_model)
         names = [k for k in p if k.startswith(("proposal_0.", "proposal_1.", "field."))]
-        run = _MegaRun(make_forward(camera_index), staged.recompute, names, rays, camera_index)
+        run = _MegaRun(make_forward(camera_index), make_vjp(camera_index), staged.recompute, names, rays,
+                       camera_index)
         return _MegaQuery.apply(run, rays.origins, rays.directions, rays.nears, rays.fars,
                                 *[p[k] for k in names])
 
