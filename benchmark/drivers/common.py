@@ -1,13 +1,15 @@
-"""What the drivers share: the inputs from the seed, the reference's model
-and the per-ray work of the NeRF."""
+"""What the drivers share: the inputs from the seed, the NeRF's
+constructor arguments and the check of its widths, and the reference's
+model."""
 
 from __future__ import annotations
 
 import hashlib
 
 import torch
+from torch import nn
 
-from .. import scene
+from .. import roofline, scene
 from ..reference.models.nerfacto import NerfactoModel as RefModel
 
 
@@ -18,20 +20,55 @@ def derive(seed: int, tag: str) -> int:
 
 def model_kwargs(config: dict, num_cameras: int) -> dict:
     """The NeRF's constructor arguments (the port's and the reference's
-    NerfactoModel take the same) from the configuration."""
+    NerfactoModel take the same) from the configuration: every width the
+    constructor takes (the hash field's table size and finest resolution
+    where the field is `hash`). The widths it fixes itself are held
+    against the configuration by `check_model`."""
     m = config["model"]
     s = m["aabb_scale"]
-    return dict(aabb=((-s, -s, -s), (s, s, s)), hdr=m["hdr"], num_nerf_samples=m["num_nerf_samples"],
-                num_proposal_samples=tuple(m["num_proposal_samples"]), num_cameras=num_cameras,
-                appearance_embedding_dim=m["appearance_embedding_dim"], background_color=m["background_color"],
-                use_fake_contraction=m["use_fake_contraction"], implementation=m["implementation"])
+    kw = dict(aabb=((-s, -s, -s), (s, s, s)), hdr=m["hdr"], num_nerf_samples=m["num_nerf_samples"],
+              num_proposal_samples=tuple(m["num_proposal_samples"]), num_cameras=num_cameras,
+              appearance_embedding_dim=m["appearance_embedding_dim"], background_color=m["background_color"],
+              use_fake_contraction=m["use_fake_contraction"], implementation=m["implementation"])
+    if m["implementation"] == "hash":
+        kw.update(log2_hashmap_size=m["log2_hashmap_size"], max_res=m["max_res"])
+    return kw
+
+
+def check_model(model, config: dict) -> None:
+    """Raise ValueError where the built NerfactoModel's Linear shapes (in,
+    out) or hash table rows differ from what the configuration's widths
+    imply (`roofline`), so that the yardstick never describes another model
+    than the one that runs."""
+    def built(module):
+        return [(m.in_features, m.out_features) for m in module.modules() if isinstance(m, nn.Linear)]
+
+    def rows(module):
+        table = getattr(module, "hash_table", None)
+        return None if table is None else table.shape[0]
+
+    def layers(dims):
+        return list(zip(dims[:-1], dims[1:]))
+
+    d = roofline.nerf_mlp_dims(config)
+    props = model.proposal_networks
+    got = {"proposals": [built(p.mlp) for p in props], "base": built(model.field.base_mlp),
+           "head": built(model.field.head_mlp),
+           "tables": {"proposals": [rows(p) for p in props], "field": rows(model.field)}}
+    want = {"proposals": [layers(p) for p in d["proposals"]], "base": layers(d["base"]), "head": layers(d["head"]),
+            "tables": roofline.table_rows(config)}
+    diff = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+    if diff:
+        raise ValueError(f"the built NeRF differs from the configuration's widths (built, configured): {diff}")
 
 
 def weight_shapes(config: dict, num_cameras: int) -> dict:
     """The NeRF's parameter shapes, from the reference's model (built on the
-    meta device, so nothing is allocated)."""
+    meta device, so nothing is allocated; its widths checked against the
+    configuration's)."""
     kw = model_kwargs(config, num_cameras)
     model = RefModel(kw.pop("aabb"), device="meta", **kw)
+    check_model(model, config)
     return {k: tuple(v.shape) for k, v in model.named_parameters()}
 
 

@@ -7,7 +7,8 @@ weights, the pipeline, then `warmup_steps` steps on a generator seeded
 from the run's seed; the first `check_steps` of them are the steps the
 reference follows, on a generator with the same seed. Window: steps until
 `--seconds` have passed, then a synchronise; `pretrain_step_ms` is the
-window's host-clock seconds over its steps.
+window's host-clock seconds over its steps. The traced window runs
+`trace_steps` steps under the profiler with the port's tracing on.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from .. import compare, program, roofline
 from ..reference.cameras.cameras import Cameras
 from ..reference.pipeline import NerfTrainConfig, build_nerf_optimizer, nerf_train_step, tf32_off
-from ..trace import Spans, profiled, read_trace
+from ..trace import profiled, read_period
 from .common import cuda_sync, derive, ref_model, views, weight_shapes
 
 
@@ -82,17 +83,23 @@ class Driver:
         self.run.log(f"window: {steps} steps in {elapsed:.3f} s")
         return {"pretrain_step_ms": elapsed / steps * 1e3}
 
-    def trace_window(self) -> dict:
+    def trace_window(self, port: bool = True) -> dict:
+        """`trace_steps` steps under the profiler, the port's tracing on
+        (`port`); the reading with the steps' MLP FLOPs (forward once,
+        backward twice) and the encoding's work (each step's forward reads
+        and its backward writes the tables once)."""
         cuda = torch.device(self.dev).type == "cuda"
         self.losses = []
-        with Spans(cuda) as spans:
-            spans.wrap(self.pipe, "nerf_iteration", "nerf_step")
-            with profiled(cuda) as p:
-                for _ in range(self.tr["trace_steps"]):
-                    self.losses.append(self.pipe.nerf_iteration(self.gen)["loss"])
-        t = read_trace(p.prof)
-        rays = self.tr["trace_steps"] * self.cfg["train"]["num_rays_per_batch"]
-        t.update(kind="pretrain", steps=self.tr["trace_steps"], flops=3 * rays * roofline.ray_flops(self.cfg))
+        steps = self.tr["trace_steps"]
+        with profiled(cuda, port) as p:
+            for _ in range(steps):
+                self.losses.append(self.pipe.nerf_iteration(self.gen)["loss"])
+        t = read_period(p)
+        rays = steps * self.cfg["train"]["num_rays_per_batch"]
+        work = roofline.encoding_work(self.cfg)
+        t.update(kind="pretrain", steps=steps, flops=3 * rays * roofline.ray_flops(self.cfg),
+                 encoding_lookups=rays * work["lookups"],
+                 encoding_bytes=rays * work["bytes"] + steps * 2 * work["table_bytes"])
         return t
 
     def attempted(self) -> int:

@@ -17,7 +17,8 @@ Window: whole guiding periods from `window_step`; each period starts at a
 rebuild, and at its start the step counter is set back to `window_step`,
 so that no window reaches another schedule event. `takeover_step_ms` is
 the window's host-clock seconds (ending in a synchronise) over its steps,
-the rebuilds and `post_step_host` included.
+the rebuilds and `post_step_host` included. The traced window is one
+period under the profiler with the port's tracing on.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from ..reference.pipelines import sdf_optimizer as ref_sdf
 from ..reference.renderer.emitters import VMFMixture as RefMixture
 from ..reference.renderer.optimize import get_opt_config as ref_opt_config
 from ..reference.renderer.scene import DIFFUSE
-from ..trace import Spans, profiled, read_trace
+from ..trace import Spans, profiled, read_period
 from .common import cuda_sync, derive, ref_guiding, ref_model, views, weight_shapes
 
 B1 = 0.9  # Adam's first-moment decay: a fresh moment after one step is (1 - B1) g
@@ -171,10 +172,12 @@ class Driver:
         self.run.log(f"window: {steps} steps in {elapsed:.3f} s; periods (host clock, enqueued) {periods}")
         return {"takeover_step_ms": elapsed / steps * 1e3}
 
-    def trace_window(self) -> dict:
-        """One guiding period under the profiler, with spans around the
-        guiding build, the SDF step, post_step_host and every emitter
-        call."""
+    def trace_window(self, port: bool = True) -> dict:
+        """One guiding period under the profiler, the port's tracing on
+        (`port`), with spans around the guiding build, the SDF step,
+        post_step_host and every emitter call; the reading with the MLP
+        FLOPs of the rays asked of the NeRF and their encoding's work (the
+        frozen tables read once in the period)."""
         import nerf_emitter_tpu_torch.pipelines.nerf_emitter as ne
 
         pipe, cuda = self.pipe, torch.device(self.dev).type == "cuda"
@@ -197,19 +200,22 @@ class Driver:
                        count=lambda a, k: {"rays": a[0].origins.shape[0]})
             spans.wrap(ne, "post_step_host", "post_step_host")
             before = program.kernel_launches()
-            with profiled(cuda) as p:
+            with profiled(cuda, port) as p:
                 steps = self._period()
             launches = {k: n - before.get(k, 0) for k, n in program.kernel_launches().items() if n != before.get(k, 0)}
             guiding_s, step_s = spans.seconds("guiding"), spans.seconds("sdf_step")
             counts = {k: dict(v) for k, v in spans.counts.items()}
-        t = read_trace(p.prof, [lambda n: n == "bench::emitter" or "_MegaQueryBackward" in n])
+        t = read_period(p, [lambda n: n == "bench::emitter" or "_MegaQueryBackward" in n])
         f = roofline.ray_flops(self.cfg)
         em = counts.get("emitter", {})
         fwd, grad = em.get("rays", 0) + em.get("grad_rays", 0), em.get("grad_rays", 0)
         emitter_flops = fwd * f + grad * 2 * f
         emitter_bytes = (fwd + grad) * roofline.RAY_BYTES
         probes = counts.get("probes", {}).get("rays", 0)
+        work = roofline.encoding_work(self.cfg)
         t.update(kind="takeover", steps=steps, flops=emitter_flops + probes * 2 * f,
+                 encoding_lookups=(fwd + probes) * work["lookups"],
+                 encoding_bytes=(fwd + probes) * work["bytes"] + work["table_bytes"],
                  emitter_bound_s=roofline.bound_s(emitter_flops, emitter_bytes)[0],
                  emitter_bound_by=roofline.bound_s(emitter_flops, emitter_bytes)[1],
                  emitter_device_s=t["linked_s"][0] if t.get("linked_s") else 0.0,

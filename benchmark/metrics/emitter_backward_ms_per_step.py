@@ -1,6 +1,6 @@
 """emitter_backward_ms_per_step: the device time of every activity launched
-inside the port's span `emitter.backward` (the kernel query's backward: its
-recompute through K1 and the field twin in 2^16-ray chunks, `_MegaQuery`)
+inside the port's span `emitter.backward` (the kernel query's backward,
+`_MegaQuery.backward`: with the NeRF frozen, K3's bins and the vjp kernel)
 in the traced guiding period, over its steps, in ms."""
 
 

@@ -4,6 +4,7 @@ the port (`nerf_emitter_tpu_torch`), and it does so when called."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -14,13 +15,15 @@ PORT_ENV = ("NERF_EMITTER_MEGA_PIPELINED", "NERF_EMITTER_MEGA_MXU_CHUNK", "NERF_
 
 
 def build_model(config: dict, num_cameras: int, weights: dict, device):
-    """The port's NerfactoModel with the benchmark's weights."""
+    """The port's NerfactoModel with the benchmark's weights; raises
+    ValueError where its widths differ from the configuration's."""
     from nerf_emitter_tpu_torch.models.nerfacto import NerfactoModel
 
-    from .drivers.common import model_kwargs
+    from .drivers.common import check_model, model_kwargs
 
     kw = model_kwargs(config, num_cameras)
     model = NerfactoModel(kw.pop("aabb"), device=device, **kw)
+    check_model(model, config)
     load_weights(model, weights)
     return model
 
@@ -63,6 +66,25 @@ def build_pipeline(config: dict, model, dataset):
         takeover_image_size=p["takeover_image_size"], object_aabb=tuple(map(tuple, p["object_aabb"])),
         scene_scale=p["scene_scale"])
     return NerfEmitterPipeline(pipe, model, train, get_opt_config(p["opt_config_name"]), dataset)
+
+
+@contextlib.contextmanager
+def port_tracing(on: bool = True):
+    """The port's tracing (`utils/profiler`) reset and, where `on`, switched
+    on over the block; yields a dict that holds the port's counters once
+    the block has closed (empty with the tracing off). The tracing is off
+    and reset after the block."""
+    from nerf_emitter_tpu_torch.utils import profiler
+
+    profiler.reset()
+    profiler.enable(on)
+    counts = {}
+    try:
+        yield counts
+    finally:
+        profiler.disable()
+        counts.update(profiler.counters())
+        profiler.reset()
 
 
 def kernel_launches() -> dict:

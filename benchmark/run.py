@@ -2,8 +2,8 @@
 
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-from the root of a checkout. It loads the cell's configuration
-(`benchmark/configs/<config>.json`), traffic mix
+from the root of a checkout. It loads the cell's configuration (the
+`file` that `BENCHMARK.json` gives it), traffic mix
 (`benchmark/traffic/<traffic>.json`, whose `driver` names the general
 generator in `benchmark/drivers/`) and limits
 (`benchmark/limits/<cell>.json`), sets the program up from the seed,
@@ -33,10 +33,12 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
-BENCH = Path(__file__).resolve().parent
-ROOT = BENCH.parent
+ROOT = Path(__file__).resolve().parent.parent
 # top-level module names the run's process may not hold: JAX and the JAX package
 FORBIDDEN = ("jax", "jaxlib", "flax", "nerf_emitter_tpu")
+# the traced reading's counts and work, logged on standard error
+TRACE_LOG = ("steps", "period_s", "flops", "encoding_lookups", "encoding_bytes", "counts", "launches", "spans",
+             "program_counts", "program_spans")
 
 
 def log(msg: str) -> None:
@@ -52,15 +54,16 @@ class Run:
     """One run's cell, files, seed and device."""
 
     def __init__(self, workload: str, seed: int, seconds: float, trace: bool, device, bench: dict,
-                 overrides: dict | None = None):
+                 overrides: dict | None = None, root: Path = ROOT):
         cells = {w["name"]: w for w in bench["workloads"]}
         if workload not in cells:
             raise SystemExit(f"unknown workload {workload!r}; have {sorted(cells)}")
         self.cell = cells[workload]
         self.name, self.seed, self.seconds, self.trace, self.device = workload, int(seed), seconds, trace, device
-        self.config = load_json(BENCH / "configs" / f"{self.cell['config']}.json")
-        self.traffic = load_json(BENCH / "traffic" / f"{self.cell['traffic']}.json")
-        self.limits = load_json(BENCH / "limits" / f"{workload}.json")
+        config = next(c for c in bench["configs"] if c["name"] == self.cell["config"])
+        self.config = load_json(root / config["file"])
+        self.traffic = load_json(root / "benchmark" / "traffic" / f"{self.cell['traffic']}.json")
+        self.limits = load_json(root / "benchmark" / "limits" / f"{workload}.json")
         for part, values in (overrides or {}).items():  # the CPU tests' tiny sizes
             target = self.traffic if part == "traffic" else self.config[part]
             target.update(values)
@@ -85,11 +88,11 @@ def power_limit() -> str:
         return "not read"
 
 
-def read_metric(name: str, reading: dict):
+def read_metric(name: str, reading: dict, root: Path = ROOT):
     """The per-layer metric's reader, `benchmark/metrics/<name>.py`:
     read(reading) -> value or None (nothing to read)."""
     spec = importlib.util.spec_from_file_location(f"benchmark_metric_{name.replace('.', '_')}",
-                                                  BENCH / "metrics" / f"{name}.py")
+                                                  root / "benchmark" / "metrics" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read(reading)
@@ -99,16 +102,19 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
-def main(argv=None, *, device=None, overrides=None) -> int:
+def main(argv=None, *, device=None, overrides=None, root: Path = ROOT) -> int:
     """The run. `device` and `overrides` are for the CPU tests alone (a
-    tiny cell on the CPU); the command line always runs on the card."""
+    tiny cell on the CPU); the command line always runs on the card.
+    `root` holds `BENCHMARK.json` and the benchmark's data files
+    (configurations, traffic, limits, readers): a copy with a cell added
+    runs with this code."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
-    bench = load_json(ROOT / "BENCHMARK.json")
+    bench = load_json(Path(root) / "BENCHMARK.json")
     import torch
 
     from . import program, roofline
@@ -127,7 +133,8 @@ def main(argv=None, *, device=None, overrides=None) -> int:
             f"(H100 SXM data sheet); "
             f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.set_num_threads(4)
-    run = Run(args.workload, args.seed, args.seconds, bool(args.trace), torch.device(device), bench, overrides)
+    run = Run(args.workload, args.seed, args.seconds, bool(args.trace), torch.device(device), bench, overrides,
+              Path(root))
     driver = importlib.import_module(f"benchmark.drivers.{run.traffic['driver']}").Driver(run)
     cuda = run.device.type == "cuda"
     if cuda:
@@ -141,12 +148,12 @@ def main(argv=None, *, device=None, overrides=None) -> int:
         reading["peak_flops"] = roofline.H100_BF16_FLOPS
         metrics = {}
         for m in run.per_layer:
-            v = read_metric(m["name"], reading)
+            v = read_metric(m["name"], reading, Path(root))
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
         dev_extra = {"busy_s": reading.get("busy_s", 0.0), "window_s": reading.get("window_s", 0.0)}
         breakdown = {"device_ops": reading.get("device_ops", []), "idle_gaps": reading.get("idle_gaps", [])}
-        log("trace: " + json.dumps({k: reading[k] for k in ("steps", "counts", "launches", "spans") if k in reading}))
+        log("trace: " + json.dumps({k: reading[k] for k in TRACE_LOG if k in reading}))
     else:
         e2e = driver.window(run.seconds)
         e2e["setup_s"] = setup_s

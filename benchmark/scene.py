@@ -120,11 +120,22 @@ def synthetic_focal(width: int) -> float:
     return 0.5 * width / math.tan(0.25)
 
 
+HASH_TABLE_SCALE = 1e-4  # Instant-NGP's table init: uniform in +-1e-4
+
+
 def make_weights(shapes: dict, seed: int, device) -> dict:
-    """The NeRF's parameters from the seed, in one draw on the device: each
-    2-D tensor (out, in) N(0, 1/in) (the MLPs' lecun normal without its
-    truncation; the appearance table's N(0, 1/dim), as the port inits
-    them), each 1-D bias N(0, 0.01^2). `shapes` maps name -> shape."""
+    """The NeRF's parameters from the seed, in one normal draw on the device,
+    each tensor by its own rule:
+
+    - a hash table (a name ending in `hash_table`, (rows, features)):
+      uniform in +-1e-4 (Instant-NGP's init, as the port's `init_table`),
+      made from its normals as erf(x / sqrt 2) * 1e-4;
+    - any other 2-D tensor (out, in): N(0, 1/in) (the MLPs' lecun normal
+      without its truncation; the appearance table's N(0, 1/dim), as the
+      port inits them);
+    - each 1-D bias: N(0, 0.01^2).
+
+    `shapes` maps name -> shape."""
     g = torch.Generator(device=device).manual_seed(int(seed) % (2**63))
     total = sum(math.prod(s) for s in shapes.values())
     flat = torch.randn((total,), generator=g, device=device)
@@ -133,5 +144,8 @@ def make_weights(shapes: dict, seed: int, device) -> dict:
         size = math.prod(shape)
         x = flat[at:at + size].reshape(shape)
         at += size
-        out[name] = x / math.sqrt(shape[1]) if len(shape) == 2 else x * 0.01
+        if name.endswith("hash_table"):
+            out[name] = torch.erf(x / math.sqrt(2.0)) * HASH_TABLE_SCALE
+        else:
+            out[name] = x / math.sqrt(shape[1]) if len(shape) == 2 else x * 0.01
     return out

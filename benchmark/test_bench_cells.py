@@ -1,4 +1,4 @@
-"""Every cell of BENCHMARK.json at a tiny size on the CPU (benchmark/tiny.json):
+"""Every cell of BENCHMARK.json at a tiny size on the CPU (benchmark/tiny/<cell>.json):
 the run sets up, measures, traces and compares, and prints a last line of
 the contract's shape. Run from the repository's root:
 
@@ -19,16 +19,24 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
-TINY = json.loads((ROOT / "benchmark" / "tiny.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
-def tiny_run(cell: str, trace: int = 0, seed: int = 3000000001, plant=None) -> tuple[int, dict | None]:
-    """The cell at its tiny size on the CPU: (exit code, the last line)."""
+def tiny(cell: str, root: Path = ROOT) -> dict:
+    """The cell's tiny sizes, overrides of its configuration's parts and of
+    its traffic (`benchmark/tiny/<cell>.json`)."""
+    return json.loads((root / "benchmark" / "tiny" / f"{cell}.json").read_text())
+
+
+def tiny_run(cell: str, trace: int = 0, seed: int = 3000000001, plant=None, root: Path = ROOT,
+             err=None) -> tuple[int, dict | None]:
+    """The cell at its tiny size on the CPU: (exit code, the last line);
+    standard error goes to `err` where given."""
     out = io.StringIO()
-    with contextlib.redirect_stdout(out), (plant or contextlib.nullcontext()):
+    with contextlib.redirect_stdout(out), (plant or contextlib.nullcontext()), \
+            (contextlib.redirect_stderr(err) if err is not None else contextlib.nullcontext()):
         rc = run.main(["--workload", cell, "--seed", str(seed), "--seconds", "0.2", "--trace", str(trace)],
-                      device="cpu", overrides=json.loads(json.dumps(TINY[cell])))
+                      device="cpu", overrides=tiny(cell, root), root=root)
     lines = out.getvalue().strip().splitlines()
     return rc, (json.loads(lines[-1]) if lines else None)
 
@@ -37,7 +45,7 @@ def test_every_cell_has_its_files():
     for w in BENCH["workloads"]:
         assert (ROOT / "benchmark" / "limits" / f"{w['name']}.json").exists()
         assert (ROOT / "benchmark" / "traffic" / f"{w['traffic']}.json").exists()
-        assert w["name"] in TINY
+        assert (ROOT / "benchmark" / "tiny" / f"{w['name']}.json").exists()
     for c in BENCH["configs"]:
         assert (ROOT / c["file"]).exists()
     for m in BENCH["per_layer"]:
@@ -56,8 +64,10 @@ def test_cell_runs_tiny_on_the_cpu(cell, trace):
     dev = line["device"]
     assert dev["platform"] == "cpu" and dev["count"] == 1
     if trace:
-        # a CPU run writes no device metric
-        assert line["metrics"] == {} and dev["busy_s"] == 0.0 and "breakdown" in line
+        # a CPU run writes no device metric: only the port's counters read
+        counted = {m["name"] for m in BENCH["per_layer"]
+                   if cell in m.get("workloads", [cell]) and m["source"] == "program_counter"}
+        assert set(line["metrics"]) == counted and dev["busy_s"] == 0.0 and "breakdown" in line
     else:
         want = {m["name"] for m in BENCH["end_to_end"] if cell in m.get("workloads", [cell])}
         assert set(line["metrics"]) == want

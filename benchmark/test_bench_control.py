@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from benchmark import readings
-from benchmark.test_bench_cells import CELLS, TINY
+from benchmark.test_bench_cells import CELLS, tiny
 
 torch.set_num_threads(1)
 
@@ -25,7 +25,7 @@ def _rows(capsys, cell, args, **kw):
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_control_moves_off_the_program_on_the_cpu(capsys, cell):
     rows = _rows(capsys, cell, ["--seeds", "11", "--control-seeds", "11"], device="cpu",
-                 overrides=json.loads(json.dumps(TINY[cell])))
+                 overrides=tiny(cell))
     program, control = rows[0]["numbers"], rows[1]["numbers"]
     assert rows[1]["side"] == "control"
     assert any(control[k] > 3 * program[k] and control[k] > 0 for k in program)

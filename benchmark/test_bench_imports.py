@@ -29,10 +29,10 @@ sys.path.insert(0, {str(ROOT)!r})
 import torch
 torch.set_num_threads(1)
 from benchmark import run
-tiny = json.load(open({str(ROOT / 'benchmark' / 'tiny.json')!r}))
 cell = 'sdf-nerfacto-k5.takeover'
+tiny = json.load(open({str(ROOT / 'benchmark' / 'tiny')!r} + '/' + cell + '.json'))
 with contextlib.redirect_stdout(io.StringIO()):
-    assert run.main(['--workload', cell, '--seed', '5', '--seconds', '0.1'], device='cpu', overrides=tiny[cell]) == 0
+    assert run.main(['--workload', cell, '--seed', '5', '--seconds', '0.1'], device='cpu', overrides=tiny) == 0
 print(json.dumps(sorted({{m.split('.')[0] for m in sys.modules}})))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT, timeout=600)

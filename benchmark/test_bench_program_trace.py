@@ -1,5 +1,5 @@
-"""The reading of the port's spans (`program_trace.read_program_trace`) on a
-synthetic profile, and the readers of the metrics it feeds: a gap is named
+"""The reading of the port's spans (`trace.read_trace`) on a synthetic
+profile, and the readers of the metrics it feeds: a gap is named
 by the innermost span open at its start, a range's mirror on the device's
 timeline is no device work, the idle while a span is open is no more than
 the window's, device time is linked to the span that launched it on its
@@ -12,7 +12,7 @@ import types
 
 import pytest
 
-from benchmark import program_trace, run
+from benchmark import run, trace
 
 NS = 1e-9
 
@@ -82,7 +82,7 @@ EVENTS = [
 
 @pytest.fixture(scope="module")
 def read():
-    return program_trace.read_program_trace(_profile(EVENTS))
+    return trace.read_trace(_profile(EVENTS))
 
 
 def test_gaps_are_named_by_the_innermost_open_span(read):
@@ -117,14 +117,20 @@ def test_idle_while_open_is_no_more_than_the_windows(read):
 
 def test_nested_and_concurrent_ranges_of_a_span_count_their_idle_once():
     events = EVENTS + [Event("nek::sdf.band_forward", 50, 100), Event("nek::sdf.band_forward", 60, 300, tid=3)]
-    spans = program_trace.read_program_trace(_profile(events))["program_spans"]
+    spans = trace.read_trace(_profile(events))["program_spans"]
     assert spans["sdf.band_forward"]["idle_s"] == pytest.approx(280 * NS)
     assert spans["sdf.band_forward"]["host_s"] == pytest.approx(780 * NS)
 
 
 def test_a_profile_without_device_work_reads_empty():
-    got = program_trace.read_program_trace(_profile([e for e in EVENTS if e.device_type() != "DeviceType.CUDA"]))
-    assert got["program_spans"] == {} and got["idle_gaps"] == []
+    """No device activity (a CPU run): no gap, no device or idle time; the
+    spans' host seconds alone are read."""
+    got = trace.read_trace(_profile([e for e in EVENTS if e.device_type() != "DeviceType.CUDA"]))
+    assert got["idle_gaps"] == [] and got["device_events"] == 0 and got["busy_s"] == got["idle_s"] == 0
+    assert {k: s["host_s"] for k, s in got["program_spans"].items()} == {
+        "takeover.sdf_step": pytest.approx(980 * NS), "sdf.band_forward": pytest.approx(380 * NS),
+        "sdf.band_backward": pytest.approx(500 * NS), "emitter.backward": pytest.approx(300 * NS)}
+    assert all(s["device_s"] == s["idle_s"] == 0 for s in got["program_spans"].values())
 
 
 PORT_READERS = ("emitter_backward_ms_per_step", "emitter_used_share", "sdf_step_idle_ms_per_step",
@@ -159,18 +165,18 @@ def test_tracing_cost_runs_tiny_on_the_cpu(capsys):
     import json
 
     from benchmark import tracing_cost
-    from benchmark.test_bench_cells import TINY
+    from benchmark.test_bench_cells import tiny
 
     cell = "sdf-nerfacto-k5.takeover"
-    tiny = json.loads(json.dumps(TINY[cell]))
-    tiny["traffic"]["window_step"] = 70
+    sizes = tiny(cell)
+    sizes["traffic"]["window_step"] = 70
     assert tracing_cost.main(["--workload", cell, "--seed", "3000000003", "--port", "0,1"], device="cpu",
-                             overrides=tiny) == 0
+                             overrides=sizes) == 0
     rows = [json.loads(s) for s in capsys.readouterr().out.splitlines() if s.startswith('{"workload"')]
     assert [r["port"] for r in rows] == [0, 1]
     off, on = rows
     assert off["program_counts"] == {} and all(port == 0 for _, port in off["counts"].values())
     assert all(wrappers == port > 0 for wrappers, port in on["counts"].values())
-    assert set(on["port_metrics"]) == set(tracing_cost.PORT_METRICS)
-    assert on["port_metrics"]["emitter_used_share"] > 0
-    assert all(v is None for k, v in on["port_metrics"].items() if k != "emitter_used_share")
+    assert set(PORT_READERS) <= set(on["metrics"])
+    assert on["metrics"]["emitter_used_share"] > 0 and off["metrics"]["emitter_used_share"] is None
+    assert all(on["metrics"][k] is None for k in PORT_READERS if k != "emitter_used_share")

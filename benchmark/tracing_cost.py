@@ -4,12 +4,12 @@
 
 from the root of a checkout. It sets the cell's program up as a run does,
 then traces one period for each entry of --port, with the port's tracing
-off (0) or on (1) (`drivers/port_trace.trace_window`), and prints one JSON
-line per period: its host seconds, the cell's per-layer metrics by their
-readers in `benchmark/metrics/`, those of the port's spans and counters
-(`PORT_METRICS`), the benchmark wrappers' counts beside the port's
-counters, the port's spans, and the idle gaps named both ways. It makes no
-comparison with the reference. Needs a CUDA card.
+off (0) or on (1) (the driver's own `trace_window`, which a run traces
+with it on), and prints one JSON line per period: its host seconds, the
+cell's per-layer metrics by their readers in `benchmark/metrics/`, the
+benchmark wrappers' counts beside the port's counters, the port's spans,
+and the idle gaps. It makes no comparison with the reference. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -23,11 +23,6 @@ import time
 import torch
 
 from . import roofline, run as run_mod
-from .drivers.port_trace import trace_window
-
-# readers of what the port's tracing records (benchmark/metrics/<name>.py)
-PORT_METRICS = ("emitter_backward_ms_per_step", "emitter_used_share", "sdf_step_idle_ms_per_step",
-                "guiding_idle_ms_per_step")
 
 
 def counts_pairs(reading: dict) -> dict:
@@ -67,17 +62,14 @@ def main(argv=None, *, device=None, overrides=None) -> int:
     run_mod.log(f"setup {time.perf_counter() - t0:.2f} s")
     out = open(args.out, "a") if args.out else None
     for i, port in enumerate(order):
-        reading = trace_window(driver, bool(port))
+        reading = driver.trace_window(bool(port))
         reading["peak_flops"] = roofline.H100_BF16_FLOPS
         metrics = {m["name"]: run_mod.read_metric(m["name"], reading) for m in run.per_layer}
         row = {"workload": args.workload, "seed": args.seed, "period": i, "port": port,
-               "period_s": reading.get("period_s"), "window_s": reading.get("window_s"),
-               "busy_s": reading.get("busy_s"), "program_idle_s": reading["program_idle_s"],
-               "steps": reading.get("steps"), "metrics": metrics,
-               "port_metrics": {n: run_mod.read_metric(n, reading) for n in PORT_METRICS},
+               "period_s": reading["period_s"], "window_s": reading["window_s"], "busy_s": reading["busy_s"],
+               "idle_s": reading["idle_s"], "steps": reading.get("steps"), "metrics": metrics,
                "counts": counts_pairs(reading), "program_counts": reading["program_counts"],
-               "program_spans": reading["program_spans"], "idle_gaps": reading.get("idle_gaps", []),
-               "program_idle_gaps": reading["program_idle_gaps"]}
+               "program_spans": reading["program_spans"], "idle_gaps": reading["idle_gaps"]}
         line = json.dumps(row)
         print(line, flush=True)
         if out is not None:
