@@ -17,7 +17,10 @@ NeRF's parameters trained and frozen (each gradient held against the
 model forward's), runs the three profiling entry points at
 their own shapes, then the takeover's emitter as sdf-nerfacto ships it: K5
 at the gated and an overridden sample schedule, the `hash` model at
-bench.py's sizes, the turntable, the vMF guiding build, the distillation of
+nerfacto's published widths through the hash-grid kernel (K7, each
+launcher and the model's training step against its plain twin; its
+pretraining; its emitter's query and frozen backward), the
+turntable, the vMF guiding build, the distillation of
 the light-field cache with K5 as its teacher, and the distilled path; then
 the SDF renderer (one view on the card against the CPU, and lit by K5
 against the model forward), takeover steps at sdf-nerfacto's width lit
@@ -127,7 +130,7 @@ def vectors_close(a: torch.Tensor, b: torch.Tensor, rel_l2: float, cos: float) -
     err = float((a - b).norm() / b.norm().clamp(min=1e-30))
     c = float(a @ b / (a.norm() * b.norm()).clamp(min=1e-30))
     ok = bool(torch.isfinite(a).all()) and err <= rel_l2 and c >= cos
-    return dict(rel_l2=err, rel_l2_bar=rel_l2, cos=c, cos_bar=cos, within=ok)
+    return dict(rel_l2=err, rel_l2_bar=rel_l2, cos=c, cos_bar=cos, within=ok, max_abs_err=float((a - b).abs().max()))
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -211,19 +214,190 @@ def frozen_brightness_difference(model, rays, box, h: float) -> torch.Tensor:
     return (brightness(h) - brightness(-h)) / (2.0 * h)
 
 
+def hash_grid_phase(dev, seed: int, rays: int = RAYS) -> dict:
+    """K7 (csrc/hash_grid.cu) on the `hash` model at nerfacto's published
+    widths (2^19 tables, max_res 2048; proposal grids 2^17, up to 64 and
+    256), random weights and tables from `seed`, on `rays` rays from a
+    sphere of radius 2.4 toward the scene.
+
+    Per grid (proposal_0, proposal_1, field) at the positions one training
+    forward gives it: each launcher against its plain twin on the same
+    card (`hash_encode`: its forward, autograd's backward and forward mode
+    through it; the forward bit for bit; the table's gradient against the
+    twin in float64, the positions' gradient and the tangent against the twin
+    in float32, by relative L2: atomics reorder the sums), each timed
+    beside its bound (bytes: positions in, features or gradients through,
+    the table read or its gradient written once) and its twin. Then the
+    model's training forward and backward through the kernels against the
+    plain twin (`hash_encode` under autograd): the answer, every
+    parameter's gradient, both timed; and `point_lights` (its jvp through
+    the forward's tangent mode) against the plain twin. Only K7's
+    launchers run: counted by name."""
+    from nerf_emitter_tpu_torch import kernels
+    from nerf_emitter_tpu_torch.cameras.rays import RayBundle
+    from nerf_emitter_tpu_torch.fields import encodings, nerfacto_field
+    from nerf_emitter_tpu_torch.models.nerfacto import NerfactoModel
+    from nerf_emitter_tpu_torch.ops import hash_grid as hg
+
+    torch.manual_seed(seed)
+    model = NerfactoModel(AABB, num_nerf_samples=NERF_SAMPLES, num_proposal_samples=SAMPLES, num_cameras=128,
+                          appearance_embedding_dim=32, implementation="hash", log2_hashmap_size=19, max_res=2048,
+                          device=dev)
+    with torch.no_grad():
+        for net in (*model.proposal_networks, model.field):
+            net.hash_table.uniform_(-1e-2, 1e-2)  # larger than init, so the field varies across the box
+    g = torch.Generator(device="cpu").manual_seed(seed + 7)
+    o = torch.randn((rays, 3), generator=g)
+    o = 2.4 * o / o.norm(dim=-1, keepdim=True)
+    d = -o / 2.4 + 0.3 * torch.randn((rays, 3), generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    bundle = RayBundle(origins=o.to(dev), directions=d.to(dev), pixel_area=torch.full((rays, 1), 1e-4, device=dev),
+                       nears=torch.full((rays, 1), 0.05, device=dev), fars=torch.full((rays, 1), 6.0, device=dev),
+                       camera_indices=torch.randint(0, 128, (rays, 1), generator=g).to(dev))
+    gen_seed = seed + 11
+    nets = {"proposal_0": model.proposal_0, "proposal_1": model.proposal_1, "field": model.field}
+    real = nerfacto_field.hash_grid
+    seen = []
+
+    def recording(table, positions, spec):
+        seen.append(positions.detach())
+        return real(table, positions, spec)
+
+    def plain(table, positions, spec):
+        return encodings.hash_encode(table, positions, spec)
+
+    def train_forward():
+        return model(bundle, train=True, generator=torch.Generator(device=dev).manual_seed(gen_seed))
+
+    def table_twin(table, pos, gout, spec):
+        return hg._plain_grads(table, pos, gout, spec, need_positions=False)[0]
+
+    def positions_twin(table, pos, gout, spec):
+        return hg._plain_grads(table, pos, gout, spec, need_table=False)[1]
+
+    nerfacto_field.hash_grid = recording
+    try:
+        with torch.no_grad():
+            train_forward()
+    finally:
+        nerfacto_field.hash_grid = real
+    report = kernels.build()["ptxas"].get("hash_grid", "")
+    ptxas = {k: ptxas_of(report, k) for k in ("forward_kernel", "table_grad_kernel", "positions_grad_kernel")}
+    grids, checks = {}, {}
+    for (name, net), pos in zip(nets.items(), seen):
+        spec, table = net.grid_spec, net.hash_table.detach()
+        n, lf, tb = pos.shape[0], spec.out_dim, table.numel() * 4
+        gout = torch.randn((n, lf), generator=torch.Generator(device=dev).manual_seed(seed + 13), device=dev)
+        tan = torch.randn((n, 3), generator=torch.Generator(device=dev).manual_seed(seed + 17), device=dev)
+        with torch.no_grad():
+            fk = hg._kernel_forward(table, pos, spec)[0]
+            ft = encodings.hash_encode(table, pos, spec)
+            c = {"forward_bit_equal": bool(torch.equal(fk, ft)),
+                 "forward": close(fk, ft, rtol=1e-6, atol=1e-9)}
+            del fk, ft
+            c["table_grad"] = vectors_close(hg._kernel_table_grad(table, pos, gout, spec),
+                                            table_twin(table.double(), pos, gout.double(), spec),
+                                            rel_l2=1e-5, cos=0.99999)
+            c["positions_grad"] = vectors_close(hg._kernel_positions_grad(table, pos, gout, spec),
+                                                positions_twin(table, pos, gout, spec),
+                                                rel_l2=1e-4, cos=0.9999)
+            c["tangent"] = vectors_close(hg._kernel_forward(table, pos, spec, tangent=tan, primal=False)[1],
+                                         hg._plain_tangent(table, pos, tan, spec), rel_l2=1e-4, cos=0.9999)
+            ms = {"forward": cuda_ms(lambda: hg._kernel_forward(table, pos, spec), 5),
+                  "table_grad": cuda_ms(lambda: hg._kernel_table_grad(table, pos, gout, spec), 5),
+                  "positions_grad": cuda_ms(lambda: hg._kernel_positions_grad(table, pos, gout, spec), 5),
+                  "tangent": cuda_ms(lambda: hg._kernel_forward(table, pos, spec, tangent=tan, primal=False), 5)}
+            plain_ms = {"forward": cuda_ms(lambda: encodings.hash_encode(table, pos, spec), 1),
+                        "table_grad": cuda_ms(lambda: table_twin(table, pos, gout, spec), 1),
+                        "positions_grad": cuda_ms(lambda: positions_twin(table, pos, gout, spec), 1),
+                        "tangent": cuda_ms(lambda: hg._plain_tangent(table, pos, tan, spec), 1)}
+        nbytes = {"forward": n * 4 * (3 + lf) + tb, "table_grad": n * 4 * (3 + lf) + tb,
+                  "positions_grad": n * 4 * (3 + lf + 3) + tb, "tangent": n * 4 * (3 + 3 + lf) + tb}
+        bound = {k: bound_ms(0.0, b)[0] for k, b in nbytes.items()}
+        grids[name] = dict(points=n, levels=spec.num_levels, rows=spec.total_size, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound, bound_by="bytes",
+                           roofline_pct={k: 100.0 * bound[k] / ms[k] for k in bound})
+        checks[name] = c
+        del gout, tan
+    del seen
+    torch.cuda.empty_cache()
+
+    # the model's training forward and backward: kernels against the twin
+    def forward_backward():
+        model.zero_grad(set_to_none=True)
+        out = train_forward()
+        w = torch.Generator(device=dev).manual_seed(seed + 19)
+        loss = (out["rgb"] * torch.rand(out["rgb"].shape, generator=w, device=dev)).sum()
+        for wl in out["weights_list"]:
+            loss = loss + (wl * torch.rand(wl.shape, generator=w, device=dev)).sum()
+        loss.backward()
+        return out["rgb"].detach(), {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                                     if p.grad is not None}
+
+    kernels.reset_launches()
+    rgb_k, grads_k = forward_backward()
+    torch.cuda.synchronize()
+    model_launches = dict(kernels.launches)
+    step_ms = cuda_ms(forward_backward, 3)
+    nerfacto_field.hash_grid = plain
+    try:
+        rgb_p, grads_p = forward_backward()
+        plain_step_ms = cuda_ms(forward_backward, 1)
+    finally:
+        nerfacto_field.hash_grid = real
+    model_checks = {"rgb": close(rgb_k, rgb_p, rtol=1e-5, atol=1e-7)}
+    model_checks |= {f"grad.{k}": vectors_close(grads_k[k], grads_p[k], rel_l2=1e-4, cos=0.9999) for k in grads_p}
+    del rgb_k, grads_k, rgb_p, grads_p
+    torch.cuda.empty_cache()
+
+    # point lights: the jvp through the forward's tangent mode
+    m = 4096
+    sub = bundle.replace(**{k: getattr(bundle, k)[:m] for k in ("origins", "directions", "pixel_area", "nears",
+                                                                  "fars", "camera_indices")})
+    kernels.reset_launches()
+    pl_k = model.point_lights(sub)
+    torch.cuda.synchronize()
+    pl_launches = dict(kernels.launches)
+    nerfacto_field.hash_grid = plain
+    try:
+        pl_p = model.point_lights(sub)
+    finally:
+        nerfacto_field.hash_grid = real
+    pl_checks = {k: close(pl_k[k], pl_p[k], rtol=1e-4, atol=1e-6) for k in ("rgb", "luminance", "depth")}
+    pl_checks["brightness_grad"] = vectors_close(pl_k["brightness_grad"], pl_p["brightness_grad"],
+                                                 rel_l2=1e-3, cos=0.999)
+    rec = dict(phase="hash_grid", rays=rays, grids=grids, ptxas=ptxas, checks=checks,
+               model_step_ms=step_ms, model_plain_step_ms=plain_step_ms, model_launches=model_launches,
+               model_checks=model_checks, point_lights_launches=pl_launches, point_lights_checks=pl_checks,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model, bundle, pl_k, pl_p
+    torch.cuda.empty_cache()
+    held = [c for grid in checks.values() for k, c in grid.items() if k != "forward_bit_equal"]
+    held += [*model_checks.values(), *pl_checks.values()]
+    ours = {k for k in {**model_launches, **pl_launches} if not k.startswith("hash_grid")}
+    if not all(c["within"] for c in held) or ours or "hash_grid_forward[jvp]" not in pl_launches:
+        emit(rec)
+        raise AssertionError(f"K7 disagrees with its twin or another kernel ran: {ours}")
+    return rec
+
+
 def pretrain(dev, seed: int, views: int = TRAIN_VIEWS, res: int = TRAIN_RES, rays: int = TRAIN_RAYS,
-             steps: int = TRAIN_STEPS):
+             steps: int = TRAIN_STEPS, implementation: str = "freq"):
     """NeRF pretraining as sdf-nerfacto runs it (configs/methods.py:114-129):
     the `freq` model with ModelSettings' defaults and one appearance vector
-    per train view; 2^14 rays a batch, near 0.05, far 1e3; rawnerf plus
+    per train view, or with `implementation="hash"` nerfacto's hash grids at
+    their published widths (2^19 rows, max_res 2048; the benchmark's
+    `sdf-nerfacto-hashgrid` configuration); 2^14 rays a batch, near 0.05, far 1e3; rawnerf plus
     relative_l1, interlevel 1.0, distortion 0.002; lr 1e-3 for the fields
     and the proposals decaying to 1e-4 over 2,320 steps with the x0.01 drop
     at step 2,000; the proposal anneal over 1,000 steps, slope 10. On the
     synthetic scene (data/synthetic.py: views at res^2) parsed by the
     instant-ngp parser (scene_scale 1/3, aabb_scale 1.5, a 0.9 train
     fraction), `steps` steps from `seed`. A held-out view rendered (chunks
-    of 4,096 rays) before and after. Returns (model, the phase's record,
-    the checks); the caller raises on a failed check."""
+    of 4,096 rays) before and after. The `freq` step launches none of the
+    port's kernels; the `hash` step K7's forward and table gradient once a
+    grid (3 each a step), counted over the steps alone. Returns (model, the
+    phase's record, the checks); the caller raises on a failed check."""
     from nerf_emitter_tpu_torch import kernels
     from nerf_emitter_tpu_torch.data.datamanager import build_dataset
     from nerf_emitter_tpu_torch.data.dataparsers.instant_ngp import InstantNGPDataparserConfig, parse_instant_ngp
@@ -243,7 +417,9 @@ def pretrain(dev, seed: int, views: int = TRAIN_VIEWS, res: int = TRAIN_RES, ray
     data_s = time.perf_counter() - t0
     s = dp.aabb_scale
     torch.manual_seed(seed + 6)
-    model = NerfactoModel(((-s,) * 3, (s,) * 3), num_cameras=len(ds.cameras), implementation="freq", device=dev)
+    widths = dict(log2_hashmap_size=19, max_res=2048) if implementation == "hash" else {}
+    model = NerfactoModel(((-s,) * 3, (s,) * 3), num_cameras=len(ds.cameras), implementation=implementation,
+                          device=dev, **widths)
     config = TrainConfig(num_rays_per_batch=rays, near=0.05, far=1e3, rgb_loss="rawnerf",
                          rgb_loss_second="relative_l1", interlevel_mult=1.0, distortion_mult=0.002,
                          anneal_steps=1000, anneal_slope=10.0, max_steps=2320, lr_fields=1e-3, lr_proposal=1e-3,
@@ -285,7 +461,8 @@ def pretrain(dev, seed: int, views: int = TRAIN_VIEWS, res: int = TRAIN_RES, ray
     # warm-up step device_trace takes), which train on
     step_trace = device_trace(lambda: step(state, ds, gen), calls=3, top=8) if cuda else None
     eval_end = evaluate()
-    rec = dict(phase="train", views=[len(ds.cameras), len(eval_ds.cameras)], res=res, rays_per_batch=rays,
+    rec = dict(phase="train" if implementation == "freq" else f"train_{implementation}",
+               views=[len(ds.cameras), len(eval_ds.cameras)], res=res, rays_per_batch=rays,
                steps=steps, steps_before_end_eval=state.step, data_s=data_s, train_s=train_s, ms_per_step=ms,
                ms_per_step_over="steps 11-%d, CUDA events" % steps, rays_per_s=rays / (ms * 1e-3) if ms else None,
                step_ms_first3=step_ms[:3], peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
@@ -297,7 +474,9 @@ def pretrain(dev, seed: int, views: int = TRAIN_VIEWS, res: int = TRAIN_RES, ray
               "rgb_loss_fell_0.7x": last["rgb_loss"] < 0.7 * first["rgb_loss"],
               "eval_metrics_finite": metrics_finite,
               "eval_psnr_rose": eval_end["psnr"] > eval_start["psnr"],
-              "no_port_kernel_in_training": not train_launches}
+              **({"no_port_kernel_in_training": not train_launches} if implementation == "freq" else
+                 {"k7_alone_in_training": train_launches == {"hash_grid_forward": 3 * steps,
+                                                             "hash_grid_backward": 3 * steps}})}
     return model, rec, checks
 
 
@@ -2511,44 +2690,36 @@ def main() -> int:
         raise AssertionError(f"K5 disagrees at another schedule: {bad}")
     sched_launches = {"mega_pipeline": sum(v.get("mega_pipeline", 0) for v in sched_launches.values())}
 
-    # ---- phase 8: the `hash` model at bench.py's sizes (2^19 tables,
-    # max_res 2048; the rest sdf-nerfacto's). Its eval forward is plain
-    # PyTorch (the hash grid is a gather per level and corner), timed at
-    # 2^16 of bench.py's rays (origins 0, near 0.05, far 6); on 1,024 of them
-    # held against the same weights on the CPU at the JAX suite's bar for
-    # the model (rtol 2e-2, atol 1e-4), and its point lights too (the
-    # brightness gradient reported by its relative L2 error). Its emitter query is
-    # served by the model forward: no kernel launch, by the launch counts
-    # and by the profiler's device trace.
-    torch.manual_seed(args.seed + 3)
-    hmodel = NerfactoModel(AABB, num_nerf_samples=NERF_SAMPLES, num_proposal_samples=SAMPLES, num_cameras=128,
-                           appearance_embedding_dim=32, implementation="hash", log2_hashmap_size=19,
-                           max_res=2048, device=dev)
-    bench_rays = RayBundle(
-        origins=torch.zeros((n, 3), device=dev), directions=d, pixel_area=torch.full((n, 1), 1e-4, device=dev),
-        nears=torch.full((n, 1), 0.05, device=dev), fars=torch.full((n, 1), 6.0, device=dev),
-        camera_indices=torch.zeros((n, 1), dtype=torch.long, device=dev))
-    hcpu = copy.deepcopy(hmodel).to("cpu")
-    m_cpu = 1024
-    cpu_rays = RayBundle(**{k: v[:m_cpu].cpu() for k, v in vars(bench_rays).items() if v is not None})
-    with torch.no_grad():
-        h_out = hmodel(bench_rays)
-        h_ms = cuda_ms(lambda: hmodel(bench_rays), 3)
-        h_cpu = hcpu(cpu_rays)
-        h_checks = {k: close(h_out[k][:m_cpu].cpu(), h_cpu[k], rtol=2e-2, atol=1e-4) for k in h_cpu}
-    pl_gpu = hmodel.point_lights(bench_rays.replace(**{k: getattr(bench_rays, k)[:m_cpu]
-                                                       for k in ("origins", "directions", "pixel_area",
-                                                                 "nears", "fars", "camera_indices")}))
-    pl_cpu = hcpu.point_lights(cpu_rays)
-    h_checks |= {f"point_lights_{k}": close(pl_gpu[k].cpu(), pl_cpu[k], rtol=2e-2, atol=1e-4)
-                 for k in ("rgb", "luminance", "depth")}
-    # at init (tables within +-1e-4) the hash field is nearly constant: its
-    # brightness gradient, ~1e-4, carries the samplers' f32 roundoff; reported
-    h_checks["point_lights_brightness_grad"] = vectors_close(
-        pl_gpu["brightness_grad"].cpu(), pl_cpu["brightness_grad"], rel_l2=5e-2, cos=0.99) | {
-        "held": False, "finite": bool(torch.isfinite(pl_gpu["brightness_grad"]).all())}
-    del hcpu, h_cpu, pl_gpu, pl_cpu
-    h_emitter = make_nerf_emitter_fn(hmodel, 1.0, OBJECT_BOX)(camera_index=0)
+    # ---- phase 8: the `hash` model at nerfacto's published widths through
+    # K7 (csrc/hash_grid.cu). Each launcher, the model's step and its point
+    # lights against the plain twin (`hash_grid_phase`); the model's
+    # pretraining (`pretrain` on the hash grids: the step of the benchmark's
+    # `sdf-nerfacto-hashgrid.pretrain`, K7's forward and table gradient);
+    # the trained field as the emitter at far = 4: its query, served by the
+    # model forward (K7's forward alone, none of K1-K6), and the query's
+    # backward with the NeRF frozen, as the takeover takes it (the
+    # positions' gradient), held against the plain twin
+    from nerf_emitter_tpu_torch.fields import encodings, nerfacto_field
+
+    hg_rec = hash_grid_phase(dev, args.seed + 3)
+    emit(hg_rec)
+    k7_modes = {"hash_grid_forward": "forward", "hash_grid_forward[jvp]": "tangent",
+                "hash_grid_backward": "table_grad", "hash_grid_positions_backward": "positions_grad"}
+    for name, mode in k7_modes.items():  # ms: the three grids' launches at 2^16 rays' samples
+        results[name] = dict(
+            name=name, route="cuda", source="nerf_emitter_tpu_torch/csrc/hash_grid.cu",
+            replaces="none: the JAX grid is plain XLA gathers (nerf_emitter_tpu/fields/encodings.py hash_encode)",
+            max_abs_err=max(c[mode]["max_abs_err"] for c in hg_rec["checks"].values()),
+            **{k: sum(grid[k][mode] for grid in hg_rec["grids"].values()) for k in ("ms", "plain_ms", "bound_ms")},
+            bound_by="bytes", library_ms=None)
+    t_phase = time.perf_counter()
+    hmodel, htrain_rec, htrain_checks = pretrain(dev, args.seed + 5, implementation="hash")
+    hash_train_launches = htrain_rec["launches_during_training"]
+    emit(htrain_rec | dict(phase_s=time.perf_counter() - t_phase, checks=htrain_checks))
+    if not all(htrain_checks.values()):
+        raise AssertionError(f"hash pretraining: failed checks {htrain_checks}")
+    h_emitter_of = functools.partial(make_nerf_emitter_fn, hmodel, 1.0, OBJECT_BOX, far=4.0)
+    h_emitter = h_emitter_of()(camera_index=0)
     kernels.reset_launches()
     with torch.no_grad():
         h_rgb = h_emitter(x_unit, d)
@@ -2557,19 +2728,40 @@ def main() -> int:
         h_emitter_ms = cuda_ms(lambda: h_emitter(x_unit, d), 3)
         h_trace = device_trace(lambda: h_emitter(x_unit[:nc], d[:nc]), calls=1, top=10**6)
     ours = [k for k in h_trace["device_ms_by_name"] if any(e in k for e in KERNEL_ENTRIES)]
-    emit(dict(phase="hash_field", rays=n, forward_ms=h_ms, forward_rays_per_s=n / (h_ms * 1e-3),
-              emitter_ms=h_emitter_ms, emitter_rays_per_s=n / (h_emitter_ms * 1e-3),
-              vs_cpu_1024_rays=h_checks, launches=hash_launches, port_kernels_in_trace=ours,
-              trace_device_events=h_trace["device_events"],
-              table_rows=int(hmodel.field.hash_table.shape[0]), rgb_mean=float(h_rgb.mean())))
-    if hash_launches or ours or h_trace["device_events"] == 0:
-        raise AssertionError(f"the hash emitter did not run on the model forward alone: {hash_launches} {ours}")
+    h_frozen = h_emitter_of(detach_nerf=True)(camera_index=0)
+    mb = BACKWARD_RAYS
+    w_rgb = torch.rand((mb, 3), generator=torch.Generator(device=dev).manual_seed(args.seed + 9), device=dev)
+
+    def h_emitter_grad():
+        x = x_unit[:mb].clone().requires_grad_(True)
+        (h_frozen(x, d[:mb]) * w_rgb).sum().backward()
+        return x.grad
+
+    kernels.reset_launches()
+    gx_k = h_emitter_grad()
+    torch.cuda.synchronize()
+    hash_bwd_launches = dict(kernels.launches)
+    h_bwd_ms = cuda_ms(h_emitter_grad, 3)
+    real_grid, nerfacto_field.hash_grid = nerfacto_field.hash_grid, encodings.hash_encode
+    try:
+        gx_p = h_emitter_grad()
+    finally:
+        nerfacto_field.hash_grid = real_grid
+    h_bwd_check = vectors_close(gx_k, gx_p, rel_l2=1e-4, cos=0.9999)
+    emit(dict(phase="hash_field", rays=n, emitter_ms=h_emitter_ms, emitter_rays_per_s=n / (h_emitter_ms * 1e-3),
+              launches=hash_launches, port_kernels_in_trace=ours, trace_device_events=h_trace["device_events"],
+              table_rows=int(hmodel.field.hash_table.shape[0]), rgb_mean=float(h_rgb.mean()),
+              backward_rays=mb, backward_ms=h_bwd_ms, backward_launches=hash_bwd_launches,
+              backward_x_grad_vs_twin=h_bwd_check))
+    if ours or set(hash_launches) != {"hash_grid_forward"}:
+        raise AssertionError(f"the hash emitter ran another kernel than K7's forward: {hash_launches} {ours}")
+    if set(hash_bwd_launches) != {"hash_grid_forward", "hash_grid_positions_backward"}:
+        raise AssertionError(f"the hash emitter's frozen backward ran other launchers: {hash_bwd_launches}")
     if h_rgb.shape != (n, 3) or not bool(torch.isfinite(h_rgb).all()):
         raise AssertionError("hash emitter output is not finite (n, 3)")
-    if not (h_checks["point_lights_brightness_grad"]["finite"]
-            and all(c["within"] for c in h_checks.values() if c.get("held", True))):
-        raise AssertionError(f"the hash model on the card disagrees with its CPU run: {h_checks}")
-    del hmodel, h_emitter, h_out, h_rgb, bench_rays
+    if not h_bwd_check["within"]:
+        raise AssertionError(f"the hash emitter's gradient by x disagrees with the twin's: {h_bwd_check}")
+    del hmodel, h_emitter, h_frozen, h_rgb, gx_k, gx_p
     torch.cuda.empty_cache()
 
     # ---- phase 9: the turntable. The K5 emitter with four turntable
@@ -2595,6 +2787,7 @@ def main() -> int:
                  "rot_id0_vs_plain": same(tt0, p4)}
     cpu_model = copy.deepcopy(model).to("cpu")
     cam_rot = torch.arange(128, device=dev) % 4
+    m_cpu = 1024  # rays held against the CPU
     tt_rays = ray_bundle(4.0, m_cpu)
     tt_rays = tt_rays.replace(camera_indices=torch.arange(m_cpu, device=dev)[:, None] % 128)
     with torch.no_grad():
@@ -2881,7 +3074,10 @@ def main() -> int:
     # staged query; K1 the backward with the NeRF's parameters trained
     # (phase 4) and the staged query; K3 and the vjp kernel the backward
     # with the NeRF frozen (phase 4) and the K5-lit takeovers (phases 12c,
-    # 13c and 13f); the
+    # 13c and 13f); K7's forward the hash pretraining step, the hash
+    # emitter's query and its backward, its tangent `point_lights`, its
+    # table gradient the pretraining step, its positions' gradient the
+    # emitter's backward (phase 8); the
     # field MLP alone its own phase (one launch at the field's shape); P1-P3
     # the profiling scripts (phase 6). Each reports its launches in the
     # runs of its own paths.
@@ -2894,6 +3090,9 @@ def main() -> int:
                "field_composite_vjp": ["backward_frozen", "takeover", "endtask", "multi_gpu"],
                "fused_field": ["staged_query"], "profile_query.kernel_a": ["profile_query"],
                "profile_query.kernel_b": ["profile_query"]}
+    path_of |= {"hash_grid_forward": ["hash_pretrain", "hash_field", "hash_emitter_backward"],
+                "hash_grid_forward[jvp]": ["hash_point_lights"], "hash_grid_backward": ["hash_pretrain"],
+                "hash_grid_positions_backward": ["hash_emitter_backward"]}
     path_of |= {f"proposal_variant[{m}]": ["profile_kernel_a"] for m in mq.PROPOSAL_MODES}
     path_of |= {f"resample[{f}]": ["profile_resample"] for f in rs.FORMS}
     counted_as = {"profile_query.kernel_a": "proposal", "profile_query.kernel_b": "field_composite"}
@@ -2903,7 +3102,9 @@ def main() -> int:
               "turntable": tt_launches, "distill": distill_launches, "render": render_launches,
               "takeover": take_launches, "train": train_k5 | train_two, "pipeline": pipe_launches,
               "endtask": end_launches, "denoise": den_launches, "viewer": view_launches,
-              "multi_gpu": mg_launches, **script_launches}
+              "multi_gpu": mg_launches, "hash_pretrain": hash_train_launches, "hash_field": hash_launches,
+              "hash_point_lights": hg_rec["point_lights_launches"], "hash_emitter_backward": hash_bwd_launches,
+              **script_launches}
 
     def by_path(name):
         return {p: counts[p].get(counted_as.get(name, name), 0) for p in path_of[name]}

@@ -19,6 +19,14 @@ PERSPECTIVE = 0
 EQUIRECTANGULAR = 1
 
 
+def _bounds(v, device) -> torch.Tensor:
+    """A near or far bound as a float32 tensor on `device`. A number is
+    filled there: copying it from the host would wait for the device."""
+    if isinstance(v, (int, float)):
+        return torch.full((), float(v), dtype=torch.float32, device=device)
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
 @dataclasses.dataclass
 class Cameras:
     """Stacked cameras; every tensor leads with the camera axis.
@@ -79,8 +87,7 @@ class Cameras:
         directions = normalize(torch.einsum("nij,nj->ni", c2w[..., :3, :3], dirs_cam))
         origins = c2w[..., :3, 3]
         shape = (*directions.shape[:-1], 1)
-        n = torch.as_tensor(nears, dtype=torch.float32, device=c2w.device).expand(shape)
-        f = torch.as_tensor(fars, dtype=torch.float32, device=c2w.device).expand(shape)
+        n, f = (_bounds(v, c2w.device).expand(shape) for v in (nears, fars))
         if aabb_box is not None:
             n, f = aabb_box.clip_near_far(origins, directions, n, f)
         return RayBundle(origins=origins, directions=directions, pixel_area=pixel_area,

@@ -4,8 +4,10 @@ nerf_emitter_tpu/fields/encodings.py): the multi-resolution hash grid
 
 These are the model path's encodings: direct sin/cos per octave. The
 kernels use the double-angle recurrence instead (ops/fused_field.py). The
-hash grid is plain PyTorch, as the reference's is plain XLA: one gather per
-(level, corner) on the flat (T, F) table.
+fields encode with the hash grid through ops/hash_grid.py, whose kernel
+(csrc/hash_grid.cu) serves CUDA tensors. `hash_encode` here is its plain
+twin and the tests' reference, plain PyTorch as the reference's is plain
+XLA: one gather per (level, corner) on the flat (T, F) table.
 """
 
 from __future__ import annotations
@@ -44,6 +46,19 @@ class HashGridSpec:
         self.offsets = np.concatenate([[0], np.cumsum(self.level_sizes)]).tolist()
         self.total_size = self.offsets[-1]
         self.out_dim = num_levels * features_per_level
+        # per level: resolution, rows, first row, dense (the kernel's rows)
+        self.level_rows = [(r, n, o, int((r + 1) ** 3 <= n))
+                           for r, n, o in zip(self.resolutions, self.level_sizes, self.offsets)]
+        self._level_tables: dict = {}
+
+    def level_table(self, device) -> torch.Tensor:
+        """`level_rows` as an (L, 4) int32 tensor on `device`, built once
+        per device."""
+        device = torch.device(device)
+        t = self._level_tables.get(device)
+        if t is None:
+            t = self._level_tables[device] = torch.tensor(self.level_rows, dtype=torch.int32, device=device)
+        return t
 
     def init_table(self, scale: float = 1e-4, device=None) -> torch.Tensor:
         t = torch.empty(self.total_size, self.features_per_level, device=device)

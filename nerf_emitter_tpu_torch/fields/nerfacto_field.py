@@ -17,9 +17,10 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.hash_grid import hash_grid
 from ..ops.spatial_distortions import contracted_to_unit, fake_contraction, scene_contraction_inf
 from ..utils.math import safe_exp
-from .encodings import HashGridSpec, hash_encode, nerf_encode, sh_encode
+from .encodings import HashGridSpec, nerf_encode, sh_encode
 from .mlp import MLP
 
 
@@ -40,7 +41,7 @@ def _check_implementation(implementation: str) -> None:
 def _encode(module, unit: torch.Tensor) -> torch.Tensor:
     """Contracted unit positions (M, 3) -> the MLP's input features."""
     if module.implementation == "hash":
-        return hash_encode(module.hash_table, unit, module.grid_spec)
+        return hash_grid(module.hash_table, unit, module.grid_spec)
     return nerf_encode(
         unit * 2.0 - 1.0,
         num_frequencies=module.freq_num_frequencies,
@@ -58,7 +59,7 @@ def _carve_out(density, flat, disable_aabb, disable_aabb_on):
 
 
 class NerfactoField(nn.Module):
-    """Radiance field: hash_encode or nerf_encode(F) -> base MLP (density +
+    """Radiance field: hash_grid or nerf_encode(F) -> base MLP (density +
     geo features) -> [SH(dirs), geo, appearance] -> rgb head."""
 
     def __init__(

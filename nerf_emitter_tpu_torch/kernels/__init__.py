@@ -41,6 +41,9 @@ SOURCES = {
     "field_mlp": "field_mlp.cu",
     "resample": "resample.cu",
     "field_composite_vjp": "field_composite_vjp.cu",
+    "hash_grid_forward": "hash_grid.cu",
+    "hash_grid_backward": "hash_grid.cu",
+    "hash_grid_positions_backward": "hash_grid.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -62,6 +65,9 @@ SIGNATURES = {
     "resample": [_I, _P, _P, _P, _LL, _I, _I, _I, _P, _P],
     "field_composite_vjp": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, *_MLP, _P, _PF, _I, _I, _I, _F, _P, _P, _P, _P,
                             _P],
+    "hash_grid_forward": [_P, _P, _P, _LL, _P, _I, _LL, _P, _P, _P],
+    "hash_grid_backward": [_P, _P, _LL, _P, _I, _LL, _P, _P],
+    "hash_grid_positions_backward": [_P, _P, _P, _LL, _P, _I, _LL, _P, _P],
 }
 SIGNATURES["proposal_variant"] = [_I, *SIGNATURES["proposal"]]
 
