@@ -34,7 +34,7 @@ from nerf_emitter_tpu_torch.guiding.gmm import fit_spherical_gmm
 from nerf_emitter_tpu_torch.guiding.light_pc import compensate_pc, extract_light_point_cloud
 from nerf_emitter_tpu_torch.guiding.path_guiding import VMFGuiding
 from nerf_emitter_tpu_torch.renderer.emitters import VMFMixture
-from nerf_emitter_tpu_torch.utils import coords
+from nerf_emitter_tpu_torch.utils import coords, profiler
 from test_torch_hash import ATOL, OBJECT_BOX, RTOL, _both, _rays_np, hash_pair
 
 torch.set_num_threads(1)
@@ -172,6 +172,89 @@ def test_light_point_cloud_at_inf_far():
     _close(out["luminance"], ref["luminance"], rtol=2e-2, atol=1e-6, msg="luminance")
     err = np.abs(out["points"].numpy() - np.asarray(ref["points"])).max(axis=1)
     assert (err <= 1e-3).mean() >= 0.95 and err.max() <= 0.2, np.quantile(err, [0.5, 0.95, 1.0])
+
+
+def _probe_cameras(n=3, height=5, width=7):
+    """n ring cameras of height x width pixels (not square, so rows and
+    columns cannot be swapped unseen)."""
+    c2w = _ring_c2w(n)
+    f = np.full(n, float(width), np.float32)
+    return Cameras(camera_to_worlds=torch.from_numpy(c2w), fx=torch.from_numpy(f), fy=torch.from_numpy(f),
+                   cx=torch.from_numpy(np.full(n, width / 2.0, np.float32)),
+                   cy=torch.from_numpy(np.full(n, height / 2.0, np.float32)), width=width, height=height)
+
+
+def _per_camera_probes(model, cams, box, chunk):
+    """The light probes as one loop per camera, each camera's row-major
+    pixels in chunks of `chunk`: the grouping the batched extraction
+    replaces."""
+    h, w = cams.height, cams.width
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    coords = torch.stack([yy, xx], dim=-1).reshape(-1, 2)
+    outs = {"points": [], "luminance": [], "rgb": [], "brightness_grad": []}
+    with torch.no_grad():
+        for ci in range(len(cams)):
+            for start in range(0, coords.shape[0], chunk):
+                co = coords[start:start + chunk]
+                idx = torch.full((co.shape[0],), ci, dtype=torch.long)
+                rays = cams.generate_rays(idx, co, nears=0.05, fars=1e3, aabb_box=box)
+                out = model.point_lights(rays)
+                outs["points"].append(rays.origins + rays.directions * out["depth"])
+                for k in ("luminance", "rgb", "brightness_grad"):
+                    outs[k].append(out[k])
+    return {k: torch.cat(v) for k, v in outs.items()}
+
+
+@pytest.mark.parametrize("rig", [False, True], ids=["cameras", "spherical_rig"])
+def test_probes_batched_across_cameras_equal_the_per_camera_loop(rig):
+    """The probe rays of all cameras in chunks that cross cameras (3
+    cameras of 5 x 7 pixels in chunks of 16, the last partial; or the
+    spherical rig, one 9 x 4 camera in chunks of 16) give the per-camera
+    loop's points, luminance, rgb and brightness gradient row for row, each
+    ray lit with its own camera's appearance embedding."""
+    _, _, pm = lit_pair()
+    box = SceneBox(aabb=torch.tensor(OBJECT_BOX), crop_mode=CropMode.FAR2INF)
+    center = torch.tensor([0.05, 0.6, -0.1])
+    if rig:
+        cams = make_spherical_rig(center, width=9, height=4)
+        out = extract_light_point_cloud(pm, None, object_aabb=torch.tensor(OBJECT_BOX), chunk=16,
+                                        use_spherical_rig=True, rig_center=center, rig_res=(9, 4))
+    else:
+        cams = _probe_cameras()
+        out = extract_light_point_cloud(pm, cams, object_aabb=torch.tensor(OBJECT_BOX), downscale=1, chunk=16)
+    ref = _per_camera_probes(pm, cams, box, chunk=16)
+    n = len(cams) * cams.height * cams.width
+    assert n % 16 != 0 and ref["luminance"].shape == (n,)
+    assert float(ref["luminance"].std()) > 0.0  # rays that differ
+    for k in ("points", "luminance", "rgb", "brightness_grad"):
+        assert out[k].shape == ref[k].shape and out[k].dtype == ref[k].dtype, k
+        _close(out[k], ref[k].numpy(), rtol=RTOL, atol=ATOL, msg=k)
+
+
+def test_probe_calls_count_the_chunks(monkeypatch):
+    """guiding.probe_calls counts one per point_lights call, ceil(rays /
+    chunk) of them across cameras, and guiding.probe_rays every probe ray."""
+    _, _, pm = lit_pair()
+    calls = []
+    real = pm.point_lights
+
+    def point_lights(rays, **kw):
+        calls.append(rays.origins.shape[0])
+        return real(rays, **kw)
+
+    monkeypatch.setattr(pm, "point_lights", point_lights)
+    profiler.reset()
+    profiler.enable()
+    try:
+        extract_light_point_cloud(pm, _probe_cameras(), object_aabb=torch.tensor(OBJECT_BOX), downscale=1,
+                                  chunk=16)
+        c = profiler.counters()
+    finally:
+        profiler.disable()
+        profiler.reset()
+    assert calls == [16] * 6 + [9]
+    assert c["guiding.probe_calls"] == math.ceil(105 / 16) == len(calls)
+    assert c["guiding.probe_rays"] == 105
 
 
 def _multiset(pts, w):

@@ -8,7 +8,9 @@ counts its recompute chunks. The takeover is the benchmark's K5 cell at
 its tiny size (benchmark/tiny.json), lit on the CPU by the model's own
 forward."""
 
+import inspect
 import json
+import math
 import sys
 import threading
 from collections import defaultdict
@@ -22,6 +24,7 @@ from benchmark.drivers.port_trace import trace_window
 from benchmark.drivers.takeover import Driver
 from benchmark.tracing_cost import counts_pairs
 from nerf_emitter_tpu_torch.cameras.rays import RayBundle
+from nerf_emitter_tpu_torch.guiding.light_pc import extract_light_point_cloud
 from nerf_emitter_tpu_torch.models.nerfacto import NerfactoModel
 from nerf_emitter_tpu_torch.ops import mega_query
 from nerf_emitter_tpu_torch.renderer import integrator
@@ -134,13 +137,16 @@ def test_counters_match_the_benchmark_wrappers(takeover):
     """In the benchmark's traced period, the port's tracing on: emitter.rays
     is the wrappers' rays and grad_rays, emitter.grad_rays their grad_rays,
     emitter.rerun_rays their recompute_rays, guiding.probe_rays the probes'
-    rays; the kept answers are some and no more than the rays asked. The
-    tracing is off again afterwards."""
+    rays, and guiding.probe_calls the period's one rebuild's point_lights
+    calls, ceil(probe rays / chunk); the kept answers are some and no more
+    than the rays asked. The tracing is off again afterwards."""
     reading = trace_window(takeover, True)
     for name, (wrappers, port) in counts_pairs(reading).items():
         assert wrappers == port > 0, (name, wrappers, port)
     c = reading["program_counts"]
     assert 0 < c["emitter.used_rays"] <= c["emitter.rays"]
+    chunk = inspect.signature(extract_light_point_cloud).parameters["chunk"].default
+    assert c["guiding.probe_calls"] == math.ceil(c["guiding.probe_rays"] / chunk) > 0
     assert not profiler.enabled() and profiler.counters() == {}
 
 
