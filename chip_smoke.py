@@ -7,11 +7,11 @@ each kernel against its plain PyTorch twin at the shapes its path gives it
 (and at part-filled sizes), runs the wgmma field MLP of K2, K4 and K5 alone
 (held layer by layer, timed per layer kind beside a bf16 torch.matmul
 chain), answers 2^16 escaped emitter rays at the full width of the
-sdf-nerfacto `freq` model (random weights from --seed) through the default
-kernel query (K5), through the two-kernel query (K3 + K4) and through the
-staged query (K1 + K2), checks the answers against the model's plain
-forward, holds the vjp kernel (the query's backward for a frozen NeRF)
-against its plain version at 2^16 rays and at a part-filled group, times
+sdf-nerfacto `freq` model (random weights from --seed) through the kernel
+query (K5), through K3 then K4 on K3's bins and through the staged query
+(K1 + K2), checks the answers against the model's plain forward, holds
+the vjp kernel (the query's backward for a frozen NeRF) against its plain
+version at 2^16 rays and at a part-filled group, times
 a backward pass through the query at 2^14 rays by both of its routes, the
 NeRF's parameters trained and frozen (each gradient held against the
 model forward's), runs the three profiling entry points at
@@ -1872,6 +1872,33 @@ def multi_gpu(dev, seed: int, *, world: int = 2, views: int = 16, res: int = 256
     return rec, checks, launches
 
 
+def k3_then_k4(model, rays, camera_index: int = 0) -> torch.Tensor:
+    """The kernel query's answer (n, 3) to `rays` (a RayBundle) with the
+    object box carved out, through K3, then K4 on K3's bins, in place of
+    K5, whose answer equals it bit for bit: the weights as the query hands
+    them to its kernels (f-major first-layer rows), the rays in their
+    (3, N) / (1, N) layout. A ray's answer does not depend on the rays
+    beside it, so the rows are not padded to whole tiles."""
+    from nerf_emitter_tpu_torch.ops import fused_field as ff
+    from nerf_emitter_tpu_torch.ops import mega_query as mq
+
+    p = ff.named_params(model)
+    cfg = ff._QueryConfig(model, OBJECT_BOX, model.device)
+    (s0, s1), s2 = cfg.n_prop, cfg.n_nerf
+    mlps = [ff._mlp_params(p, k) for k in ("proposal_0.mlp", "proposal_1.mlp", "field.base_mlp", "field.head_mlp")]
+    f0, f1, f = (ff._freqs_of(ws[0]) for ws, _ in mlps[:3])
+    (ws0, bs0), (ws1, bs1), (bws, bbs), (hws, hbs) = mlps
+    box = dict(aabb_lo=cfg.aabb_lo, aabb_inv_ext=cfg.aabb_inv_ext, disable_box=cfg.dbox, avg_density=1.0)
+    rows = [t.T.contiguous() for t in (rays.origins, rays.directions, rays.nears, rays.fars)]
+    with torch.no_grad():
+        sbins = mq.proposal_bins(*rows, ff.permute_first(ws0, f0), bs0, ff.permute_first(ws1, f1), bs1, s0=s0,
+                                 s1=s1, s2=s2, freqs0=f0, freqs1=f1, **box)
+        rgb = mq.field_composite(sbins, *rows, cfg.embedding(p, camera_index, model.device).contiguous(),
+                                 ff.permute_first(bws, f), bbs, hws, hbs, s2=s2, freqs=f, hdr=cfg.hdr,
+                                 rgb_bias=cfg.rgb_bias, **box)
+    return rgb.T
+
+
 def trees_equal(a, b) -> bool:
     """Two state trees (engine/checkpoints.py's) equal bit for bit."""
     if isinstance(a, torch.Tensor):
@@ -1910,9 +1937,6 @@ def main() -> int:
     from nerf_emitter_tpu_torch.utils import coords
     from nerf_emitter_tpu_torch.utils.coords import unit_to_world
 
-    # the run measures the query's defaults
-    for knob in ("NERF_EMITTER_MEGA_PIPELINED", "NERF_EMITTER_MEGA_MXU_CHUNK"):
-        os.environ.pop(knob, None)
     # f32 comparisons on the card run in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2171,10 +2195,9 @@ def main() -> int:
 
     # K5 on the main path's rays. Against K4 on K3's bins at the JAX
     # suite's bar for the pipelined kernel against the two-kernel path
-    # (atol 1e-6, tests/test_fields.py:337), at far = 1e3 and far = 4; with
-    # mxu_chunk = 3 against mxu_chunk = 1 at the same bar; against its
-    # chained twin at the query's bar (rtol 3e-2, atol 1e-3) at far = 4, and
-    # at far = 1e3 through the aux split (1%). The chained twin's own bins
+    # (atol 1e-6, tests/test_fields.py:337), at far = 1e3 and far = 4;
+    # against its chained twin at the query's bar (rtol 3e-2, atol 1e-3) at
+    # far = 4, and at far = 1e3 through the aux split (1%). The chained twin's own bins
     # differ from K3's by hundreds of ulps (the line reports the gap), and
     # one ulp of the background sample's bins moves the answer by ~35% (K4
     # line), so the whole answer against the chained twin is reported, with
@@ -2221,12 +2244,10 @@ def main() -> int:
             b4 = mq._plain_mega_pipeline(*rows4, emb, *props, *field, **k5)
             aux_a = mq.mega_pipeline(*rows, emb, *props, *field, **k5, with_aux=True)[1]
             aux_b = mq._plain_mega_pipeline(*rows, emb, *props, *field, **k5, with_aux=True)[1]
-            chunk3 = mq.mega_pipeline(*rows, emb, *props, *field, **k5, mxu_chunk=3)
             odd = mq.mega_pipeline(*[first(t) for t in rows4], emb, *props, *field, **k5)
             on_k3_bins = mq._plain_field_composite(sbins, *rows, emb, *field, **k4)
         (fg_a, acc_a), (fg_b, acc_b) = split(a, aux_a), split(b, aux_b)
         return {"vs_k3_k4_far1e3": same(a, k34), "vs_k3_k4_far4": same(a4, k34_4),
-                "mxu_chunk3_vs_1": same(chunk3, a),
                 f"vs_k3_k4_far4_{ODD_RAYS}_rays": same(odd, first(k34_4)),
                 "twin_far4": close(a4, b4, rtol=3e-2, atol=1e-3),
                 "twin_foreground_far1e3": close(fg_a, fg_b, rtol=1e-2, atol=1e-3),
@@ -2379,7 +2400,7 @@ def main() -> int:
     del xf, shf, xb, pack, mlp_out, chain
 
     # ---- phase 3: the main path, 2^16 escaped rays through
-    # make_nerf_emitter_fn, which builds the default query: K5
+    # make_nerf_emitter_fn, which builds the kernel query: K5
     emitter = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX)(camera_index=0)
     kernels.reset_launches()
     with torch.no_grad():
@@ -2394,21 +2415,17 @@ def main() -> int:
     if rgb.shape != (n, 3) or not bool(torch.isfinite(rgb).all()):
         raise AssertionError("emitter output is not finite (n, 3)")
 
-    # The same rays through the two-kernel query (K3 + K4), which the
-    # NERF_EMITTER_MEGA_PIPELINED=0 switch selects when the query is built.
-    os.environ["NERF_EMITTER_MEGA_PIPELINED"] = "0"
-    try:
-        two_emitter = make_nerf_emitter_fn(model, 1.0, OBJECT_BOX)(camera_index=0)
-    finally:
-        del os.environ["NERF_EMITTER_MEGA_PIPELINED"]
+    # The same rays through K3, then K4 on K3's bins (the two-kernel form
+    # of the query's answer).
+    main_rays = ray_bundle(1e3)
     kernels.reset_launches()
     with torch.no_grad():
-        rgb_two = two_emitter(x_unit, d)
+        rgb_two = k3_then_k4(model, main_rays)
         torch.cuda.synchronize()
     two_launches = dict(kernels.launches)
     if (two_launches.get("proposal", 0) < 1 or two_launches.get("field_composite", 0) < 1
             or two_launches.get("mega_pipeline", 0)):
-        raise AssertionError(f"the two-kernel query did not run K3 and K4 alone: {two_launches}")
+        raise AssertionError(f"the two-kernel answer did not run K3 and K4 alone: {two_launches}")
     pipelined_vs_two = same(rgb, rgb_two)
 
     # the same rays through the model's plain forward on the card
@@ -2418,14 +2435,14 @@ def main() -> int:
     main_check = close(rgb[:nc], ref, rtol=3e-2, atol=1e-3)
 
     # K4 on the bins K3 gave these rays in phase 2 (held there against
-    # both twins) reproduces the two-kernel query's answer bit for bit.
+    # both twins) reproduces the two-kernel answer bit for bit.
     # With it come each ray's accumulation and last-sample colour, which
     # split the answer against the model forward with a black background
     # (reported).
     with torch.no_grad():
         rgb_t, aux = mq.field_composite(sbins, *rows, emb, *field, **k4, with_aux=True)
         if not torch.equal(rgb_t.T, rgb_two):
-            raise AssertionError("K4 on K3's bins does not reproduce the two-kernel query's answer")
+            raise AssertionError("K4 on K3's bins does not reproduce the two-kernel answer")
         fg, acc = split(rgb_t[:, :nc], aux[:, :nc])
         black = copy.copy(model)
         black.background_color = "black"
@@ -2442,10 +2459,10 @@ def main() -> int:
 
     with torch.no_grad():
         ms = cuda_ms(lambda: emitter(x_unit, d), 5)
-        ms_two = cuda_ms(lambda: two_emitter(x_unit, d), 5)
+        ms_two = cuda_ms(lambda: k3_then_k4(model, main_rays), 5)
     # where each query's time goes: the device timeline of 3 calls
     trace = {"query": device_trace(lambda: emitter(x_unit, d)),
-             "two_kernel_query": device_trace(lambda: two_emitter(x_unit, d))}
+             "two_kernel_query": device_trace(lambda: k3_then_k4(model, main_rays))}
     emit(dict(phase="main_path", rays=n, samples=[s0, s1, s2], ms_per_query=ms,
               rays_per_s=n / (ms * 1e-3), ms_per_query_two_kernel=ms_two,
               rays_per_s_two_kernel=n / (ms_two * 1e-3), first_call_s=first_s, launches=fwd_launches,
@@ -2456,8 +2473,8 @@ def main() -> int:
     if not far4_check["within"]:
         raise AssertionError(f"kernel query disagrees with the model forward: {far4_check}")
     if not pipelined_vs_two["within"]:
-        raise AssertionError(f"K5 query disagrees with the two-kernel query: {pipelined_vs_two}")
-    del rgb, rgb_two
+        raise AssertionError(f"K5 query disagrees with the two-kernel answer: {pipelined_vs_two}")
+    del rgb, rgb_two, main_rays
 
     # ---- the staged query (K1 at both proposal levels, then K2 on the
     # field's samples), an entry point of its own: the main path's rays,
@@ -2576,7 +2593,7 @@ def main() -> int:
               grad_vs_model_far4=frozen_far4))
     if not frozen_far4["within"] or not torch.isfinite(grad_frozen).all():
         raise AssertionError(f"the frozen query's gradient disagrees with the model forward's: {frozen_far4}")
-    del emitter, two_emitter, plain, staged, grad, frozen, grad_frozen, g_frozen, g_plain
+    del emitter, plain, staged, grad, frozen, grad_frozen, g_frozen, g_plain
     torch.cuda.empty_cache()
 
     # ---- phase 5: the profiling kernels against their twins. K3's bins
@@ -2968,14 +2985,9 @@ def main() -> int:
         t_k5 = t_k5_fn(x_unit, d)
         torch.cuda.synchronize()
     train_k5 = dict(kernels.launches)
-    os.environ["NERF_EMITTER_MEGA_PIPELINED"] = "0"
-    try:
-        t_two_fn = trained_of()(camera_index=0)
-    finally:
-        del os.environ["NERF_EMITTER_MEGA_PIPELINED"]
     kernels.reset_launches()
     with torch.no_grad():
-        t_two = t_two_fn(x_unit, d)
+        t_two = k3_then_k4(tmodel, ray_bundle(4.0))
         torch.cuda.synchronize()
     train_two = dict(kernels.launches)
     with torch.no_grad():
@@ -2993,7 +3005,7 @@ def main() -> int:
            if not (c.get("bitwise", c["within"]) if isinstance(c, dict) else c)]
     if bad:
         raise AssertionError(f"train: failed checks {bad}: {train_checks}")
-    del tmodel, t_k5, t_two, t_ref, t_k5_fn, t_two_fn
+    del tmodel, t_k5, t_two, t_ref, t_k5_fn
     torch.cuda.empty_cache()
 
     # ---- phase 13b: sdf-nerfacto through its train CLI (`pipeline`):

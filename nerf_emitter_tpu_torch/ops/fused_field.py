@@ -424,13 +424,6 @@ def make_fused_radiance_query(model, *, disable_box=None, device=None):
     return query
 
 
-def pad_rows(x: torch.Tensor, n: int, fill: float) -> torch.Tensor:
-    """(m, k) -> (k, n) transposed and padded with `fill`, contiguous."""
-    out = torch.full((x.shape[1], n), fill, dtype=x.dtype, device=x.device)
-    out[:, : x.shape[0]] = x.T
-    return out
-
-
 @functools.lru_cache(maxsize=None)
 def _fmajor_index(num_freqs: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(fmajor_permutation(num_freqs), device=device)

@@ -1,7 +1,8 @@
 """The kernel emitter query (port of nerf_emitter_tpu/ops/mega_query.py):
-K5 (`mega_pipeline`, the default) or K3 (`proposal_bins`) then K4
-(`field_composite`), and P2 (`proposal_variant`), K3 with pieces stubbed
-out for profiling.
+its forward is K5 (`mega_pipeline`); K3 (`proposal_bins`) places the
+bins of its frozen backward, and K4 (`field_composite`), K4 on K3's bins,
+is the two-kernel form of K5's answer. P2 (`proposal_variant`) is K3 with
+pieces stubbed out for profiling.
 
   K3 (proposals): uniform spacing bins -> level-0 density MLP -> weights ->
     inverse-CDF resample -> level-1 density MLP -> weights -> resample ->
@@ -11,14 +12,17 @@ out for profiling.
     csrc/field_composite.cu; its MLP is the wgmma field of
     csrc/field_mlp.cuh, which `field_mlp` runs alone on given rows.
   K5: K3 then K4 per ray group in one launch; the bins stay in shared
-    memory. csrc/mega_pipeline.cu.
+    memory, and the answer is K4's on K3's bins, bit for bit.
+    csrc/mega_pipeline.cu.
   The vjp (`field_composite_vjp`): K4 transposed, the query's backward
     for a frozen NeRF: bins, rays and the gradient at the answer -> the
     gradients of o, d, near and far. csrc/field_composite_vjp.cu.
 
 The rays' o, d, near, far are the only per-ray inputs; between K3 and K4
-only the (s2+1, N) spacing bins cross device memory. Sampling is the
-staged query's deterministic serving mode (bin centres, no jitter).
+only the (s2+1, N) spacing bins cross device memory. The rows that fill a
+ray batch (K5's 128-ray tiles, the recompute's chunks, the ranks' shards)
+take the values of `RAY_PADS`. Sampling is the staged query's
+deterministic serving mode (bin centres, no jitter).
 
 The inverse CDF: the TPU kernel evaluates it as a telescoped sum of ReLU
 ramps (exact up to ~1e-4 of the spacing range from cancellation); the port
@@ -51,11 +55,11 @@ halves). The vjp kernel works ray by ray, so it needs no chunks.
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import torch
 
 from .. import kernels
+from ..parallel.mesh import fill_rows
 from ..utils import profiler
 from .fused_field import (
     _QueryConfig,
@@ -69,7 +73,6 @@ from .fused_field import (
     _sh4_rows,
     make_fused_radiance_query,
     named_params,
-    pad_rows,
     permute_first,
 )
 from .samplers import spacing_piecewise as _spacing_pw
@@ -77,9 +80,10 @@ from .samplers import spacing_piecewise_inv as _spacing_pw_inv
 
 TILE_RAYS = 128  # the query pads the ray count to whole 128-ray tiles
 RECOMPUTE_RAYS = 1 << 16  # rays a backward recomputes at once (_MegaQuery)
-# the rows that fill a recompute chunk: K5's own pad values
-_RECOMPUTE_PADS = {"origins": 0.0, "directions": 1.0, "pixel_area": 1e-4, "nears": 0.1, "fars": 0.2,
-                   "camera_indices": 0}
+# the reference's pad values for the rows that fill a ray batch, one for
+# each field of RayBundle; None: the last row repeated
+RAY_PADS = {"origins": 0.0, "directions": 1.0, "pixel_area": 1e-4, "nears": 0.1, "fars": 0.2,
+            "camera_indices": 0, "valid": None}
 _EPS = 1e-5  # sample_pdf eps
 _HIST_PAD = 0.01  # sample_pdf histogram_padding
 
@@ -348,20 +352,14 @@ def _plain_mega_pipeline(o_t, d_t, near_t, far_t, emb, ws0, bs0, ws1, bs1, bws, 
 
 def mega_pipeline(o_t, d_t, near_t, far_t, emb, ws0, bs0, ws1, bs1, bws, bbs, hws, hbs, *, s0, s1,
                   s2, freqs0, freqs1, freqs, aabb_lo, aabb_inv_ext, disable_box, avg_density, hdr,
-                  rgb_bias, mxu_chunk=1, with_aux=False):
+                  rgb_bias, with_aux=False):
     """Kernel K5: rays o_t, d_t (3, N), near_t, far_t (1, N) and one
     appearance vector (E,) -> rgb (3, N), and with `with_aux` also (acc,
     rgb_last) as (4, N): K3's bins and K4's field and composite in one
-    launch, equal to K4 on K3's bins. `mxu_chunk` (>= 1) is the reference's
-    count of sample slices per hidden-layer matmul; it is checked and has
-    no effect: the wgmma field always runs 128-sample passes
-    (csrc/mega_pipeline.cu), so the answer and the schedule are the same
-    for every value."""
+    launch, equal to K4 on K3's bins."""
     kw = dict(s0=s0, s1=s1, s2=s2, freqs0=freqs0, freqs1=freqs1, freqs=freqs, aabb_lo=aabb_lo,
               aabb_inv_ext=aabb_inv_ext, disable_box=disable_box, avg_density=avg_density, hdr=hdr,
               rgb_bias=rgb_bias, with_aux=with_aux)
-    if mxu_chunk < 1:
-        raise ValueError(f"mxu_chunk must be >= 1, got {mxu_chunk}")
     if o_t.device.type == "cpu":
         return _plain_mega_pipeline(o_t, d_t, near_t, far_t, emb, ws0, bs0, ws1, bs1, bws, bbs, hws,
                                     hbs, **kw)
@@ -473,7 +471,7 @@ def launch_field_mlp(pack, xb, sh, emb, depth, out=None):
 
 
 class _MegaQuery(torch.autograd.Function):
-    """Forward through K5 or K3 + K4. The backward's route follows what
+    """Forward through K5. The backward's route follows what
     autograd asks: with no NeRF parameter needing a gradient, `run.vjp`
     (K3's bins, then the vjp kernel); otherwise the recompute through the
     staged query (the reference's custom_vjp), with K1 placing the samples
@@ -514,8 +512,7 @@ def _recompute_grads(ctx, g, need, ray_inputs, params):
     param_grads = [None] * len(params)
     for start in range(0, n, chunk):
         stop = min(start + chunk, n)
-        part = {k: None if v is None else _chunk_rows(v[start:stop], chunk, _RECOMPUTE_PADS.get(k))
-                for k, v in fields.items()}
+        part = {k: None if v is None else fill_rows(v[start:stop], chunk, RAY_PADS[k]) for k, v in fields.items()}
         leaves = [part[k].detach().requires_grad_(nd)
                   for k, nd in zip(("origins", "directions", "nears", "fars"), need[:4])]
         with torch.enable_grad():
@@ -523,7 +520,7 @@ def _recompute_grads(ctx, g, need, ray_inputs, params):
                                              fars=leaves[3]))
             out = ctx.run.staged(dict(zip(ctx.run.names, params)), rays, ctx.run.camera_index)
         wanted = [t for t in leaves + params if t.requires_grad]
-        got = iter(torch.autograd.grad(out, wanted, _chunk_rows(g[start:stop], chunk, 0.0), allow_unused=True))
+        got = iter(torch.autograd.grad(out, wanted, fill_rows(g[start:stop], chunk, 0.0), allow_unused=True))
         for i, t in enumerate(leaves):
             if t.requires_grad:
                 gi = next(got)
@@ -539,17 +536,6 @@ def _recompute_grads(ctx, g, need, ray_inputs, params):
     return (*rays_out, *param_grads)
 
 
-def _chunk_rows(x: torch.Tensor, rows: int, fill) -> torch.Tensor:
-    """x (k <= rows, ...) filled up to `rows` rows with `fill` (None: the
-    last row repeated)."""
-    k = x.shape[0]
-    if k == rows:
-        return x
-    pad = (x[-1:].expand(rows - k, *x.shape[1:]) if fill is None
-           else torch.full((rows - k, *x.shape[1:]), fill, dtype=x.dtype, device=x.device))
-    return torch.cat([x, pad])
-
-
 class _MegaRun:
     """One query call's state, handed to the autograd Function."""
 
@@ -558,47 +544,23 @@ class _MegaRun:
         self.rays, self.camera_index = rays, camera_index
 
 
-def _switches(pipelined, mxu_chunk):
-    """The builder's two switches with the reference's defaults and errors
-    (nerf_emitter_tpu/ops/mega_query.py:583-595)."""
-    if pipelined is None:
-        pipelined = os.environ.get("NERF_EMITTER_MEGA_PIPELINED", "1") == "1"
-    if mxu_chunk is None:
-        raw = os.environ.get("NERF_EMITTER_MEGA_MXU_CHUNK", "1")
-        try:
-            mxu_chunk = int(raw)
-        except ValueError as e:
-            raise ValueError(
-                f"NERF_EMITTER_MEGA_MXU_CHUNK={raw!r} must be an integer "
-                "(number of column slices per hidden-layer matmul)"
-            ) from e
-    if mxu_chunk < 1:
-        raise ValueError(f"mxu_chunk must be >= 1, got {mxu_chunk}")
-    return bool(pipelined), mxu_chunk
-
-
-def make_mega_radiance_query(model, *, disable_box=None, pipelined=None, mxu_chunk=None,
-                             device=None):
+def make_mega_radiance_query(model, *, disable_box=None, device=None):
     """The kernel query, with the contract of `make_fused_radiance_query`:
     query(params_or_model, rays, camera_index=None) -> rgb (n, 3), one
     camera for all rays.
 
-    pipelined=True runs the whole query as K5; False runs K3 then K4. The
-    answer is the same either way. mxu_chunk is the reference's knob (its
-    column slices per hidden-layer matmul): it is checked, kept and passed
-    to K5, which has no counterpart of those slices (its wgmma field runs
-    128-sample passes), so no value changes the answer or the schedule.
-    Both default from NERF_EMITTER_MEGA_PIPELINED (default "1") and
-    NERF_EMITTER_MEGA_MXU_CHUNK (default "1"), read here, once: changing the
-    environment after the query is built does not change it. The query
-    carries the values it was built with as `.pipelined` and `.mxu_chunk`.
+    The forward is one K5 launch on the rays padded to whole 128-ray tiles.
+    The reference's two switches, the two-kernel forward and the MXU's
+    column slices (NERF_EMITTER_MEGA_PIPELINED, NERF_EMITTER_MEGA_MXU_CHUNK),
+    have no counterpart here: K5's answer is K4's on K3's bins, bit for
+    bit, and its wgmma field has no column slices.
+
     A field whose widths the wgmma field does not take, or sample counts
     that the vjp kernel does not take or whose shared memory does not fit a
     block, raise ValueError here (`check_query_shapes`); so does a proposal
     MLP that K1, which the recompute route of the backward runs, does not
     take (the staged query's `check_staged_shapes`). `device=None` means
     CUDA."""
-    pipelined, mxu_chunk = _switches(pipelined, mxu_chunk)
     cfg = _QueryConfig(model, disable_box, device)
     s0, s1 = cfg.n_prop
     s2 = cfg.n_nerf
@@ -623,22 +585,17 @@ def make_mega_radiance_query(model, *, disable_box=None, pipelined=None, mxu_chu
 
     def padded_rows(origins, directions, nears, fars):
         """The rays in the kernels' (3, N) / (1, N) layout, padded to whole
-        128-ray tiles with K5's pad values."""
+        128-ray tiles with RAY_PADS."""
         n_pad = -(-origins.shape[0] // TILE_RAYS) * TILE_RAYS
-        return (pad_rows(origins, n_pad, 0.0), pad_rows(directions, n_pad, 1.0),
-                pad_rows(nears, n_pad, 0.1), pad_rows(fars, n_pad, 0.2))
+        return tuple(fill_rows(x, n_pad, RAY_PADS[k]).T.contiguous() for k, x in
+                     (("origins", origins), ("directions", directions), ("nears", nears), ("fars", fars)))
 
     def make_forward(camera_index):
         def forward(p, origins, directions, nears, fars):
             rows = padded_rows(origins, directions, nears, fars)
             props, field, emb, fp, ff = weights(p, camera_index, origins.device)
-            if pipelined:
-                rgb_t = mega_pipeline(*rows, emb, *props, *field, s0=s0, s1=s1, s2=s2, **fp, freqs=ff,
-                                      hdr=cfg.hdr, rgb_bias=cfg.rgb_bias, mxu_chunk=mxu_chunk, **kw)
-            else:
-                sbins = proposal_bins(*rows, *props, s0=s0, s1=s1, s2=s2, **fp, **kw)
-                rgb_t = field_composite(sbins, *rows, emb, *field, s2=s2, freqs=ff, hdr=cfg.hdr,
-                                        rgb_bias=cfg.rgb_bias, **kw)
+            rgb_t = mega_pipeline(*rows, emb, *props, *field, s0=s0, s1=s1, s2=s2, **fp, freqs=ff, hdr=cfg.hdr,
+                                  rgb_bias=cfg.rgb_bias, **kw)
             return rgb_t[:, :origins.shape[0]].T.contiguous()
         return forward
 
@@ -651,8 +608,9 @@ def make_mega_radiance_query(model, *, disable_box=None, pipelined=None, mxu_chu
             rows = padded_rows(origins, directions, nears, fars)
             props, field, emb, fp, ff = weights(p, camera_index, origins.device)
             sbins = proposal_bins(*rows, *props, s0=s0, s1=s1, s2=s2, **fp, **kw)
-            grads = field_composite_vjp(sbins, *rows, pad_rows(g, rows[0].shape[1], 0.0), emb, *field, s2=s2,
-                                        freqs=ff, hdr=cfg.hdr, rgb_bias=cfg.rgb_bias, **kw)
+            g_t = fill_rows(g, rows[0].shape[1], 0.0).T.contiguous()
+            grads = field_composite_vjp(sbins, *rows, g_t, emb, *field, s2=s2, freqs=ff, hdr=cfg.hdr,
+                                        rgb_bias=cfg.rgb_bias, **kw)
             return [t[:, :origins.shape[0]].T for t in grads]
         return vjp
 
@@ -664,5 +622,4 @@ def make_mega_radiance_query(model, *, disable_box=None, pipelined=None, mxu_chu
         return _MegaQuery.apply(run, rays.origins, rays.directions, rays.nears, rays.fars,
                                 *[p[k] for k in names])
 
-    query.pipelined, query.mxu_chunk = pipelined, mxu_chunk
     return query

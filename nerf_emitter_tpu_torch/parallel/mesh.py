@@ -140,9 +140,11 @@ def make_mesh(n_devices: Optional[int] = None, device_type: str = "cuda") -> Mes
     return Mesh(rank=rank, world_size=world, device=rank_device(device_type), backend=backend)
 
 
-def _pad_rows(x: torch.Tensor, m: int, pad_value: Optional[float]) -> torch.Tensor:
+def fill_rows(x: torch.Tensor, m: int, pad_value: Optional[float]) -> torch.Tensor:
     """x (k <= m, ...) -> (m, ...): the last row repeated (pad_value None)
-    or filled with pad_value."""
+    or filled with pad_value. The port's one function that pads a block of
+    rows: the ranks' shards, and the kernel query's 128-ray tiles and
+    recompute chunks with its pad values (ops/mega_query.py RAY_PADS)."""
     k = x.shape[0]
     if k == m:
         return x
@@ -166,7 +168,7 @@ def _gather(x_local: torch.Tensor, mesh: Mesh, n: int) -> torch.Tensor:
 
 def _own_rows(x: torch.Tensor, mesh: Mesh, pad_value: Optional[float]) -> torch.Tensor:
     start, stop, m = mesh.rows(x.shape[0])
-    return _pad_rows(x[start:stop], m, pad_value)
+    return fill_rows(x[start:stop], m, pad_value)
 
 
 class _Shard(torch.autograd.Function):

@@ -38,7 +38,8 @@ from ..guiding.path_guiding import EmitterImageGuiding, EnvGuiding, VMFGuiding
 from ..models.nerfacto import NerfactoModel
 from ..ops.colliders import aabb_far_intersect_collider
 from ..ops.fused_field import named_params
-from ..parallel.mesh import Mesh, data_sharded, gather_rows, replicated, shard_axis, sum_gradients
+from ..ops.mega_query import RAY_PADS, make_mega_radiance_query
+from ..parallel.mesh import Mesh, data_sharded, fill_rows, gather_rows, replicated, shard_axis, sum_gradients
 from ..renderer.emitters import VMFMixture
 from ..renderer.grid3d import sphere_sdf_grid, upsample_grid
 from ..renderer.integrator import RenderConfig, draw_direct, render_spp
@@ -58,12 +59,12 @@ from .sdf_optimizer import (SdfOptState, TakeoverConfig, build_sdf_optimizer, in
 
 
 def serves_kernel_query(model, use_fused: bool) -> bool:
-    """Whether the emitter query runs on the kernel query (K5, or K3 + K4)
-    rather than the model's forward: only for `implementation == "freq"`
-    with the fake contraction (what the kernels compute) on a model on
-    CUDA, and only when asked (`use_fused`). The reference gates the same
-    way (freq on its TPU backend). The decision reads the configuration
-    alone; a kernel that then fails to build or launch raises."""
+    """Whether the emitter query runs on the kernel query (K5) rather
+    than the model's forward: only for `implementation == "freq"` with the
+    fake contraction (what the kernels compute) on a model on CUDA, and
+    only when asked (`use_fused`). The reference gates the same way (freq
+    on its TPU backend). The decision reads the configuration alone; a
+    kernel that then fails to build or launch raises."""
     return (
         bool(use_fused)
         and model.implementation == "freq"
@@ -72,39 +73,24 @@ def serves_kernel_query(model, use_fused: bool) -> bool:
     )
 
 
-# the reference's pad values for the rows that fill a ray batch up to a
-# multiple of the ranks (_shard_fused_query); None: the last row repeated
-_RAY_PADS = {"origins": 0.0, "directions": 1.0, "pixel_area": 1e-4, "nears": 0.1, "fars": 0.2,
-             "camera_indices": 0, "valid": None}
-
-
 def shard_fused_query(query, mesh: Optional[Mesh]):
     """The kernel query split over the ranks by rows of the ray batch (the
     reference's pad_scatter / pad_gather of emitter rays,
     mitsuba_sdf.py:878-912; the JAX package's shard_map). The caller holds
     a replicated batch: it is padded to a multiple of the world size with
-    the reference's pad values, each rank runs the kernel on its rows, the
-    rows are gathered and the padding dropped. The parameters' gradients
-    are summed over the ranks in the backward, so they equal the one-rank
-    gradient, as do the rays'."""
+    the reference's pad values (RAY_PADS), each rank runs the kernel on
+    its rows, the rows are gathered and the padding dropped. The
+    parameters' gradients are summed over the ranks in the backward, so
+    they equal the one-rank gradient, as do the rays'."""
     if mesh is None or mesh.world_size == 1:
         return query
 
     def sharded(params, rays: RayBundle, camera_index=None):
         n = rays.origins.shape[0]
-        pad = (-n) % mesh.world_size
-
-        def rows(name):
-            x = getattr(rays, name)
-            if x is None:
-                return None
-            fill = _RAY_PADS[name]
-            if pad:
-                x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:]) if fill is None
-                               else torch.full((pad, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)])
-            return data_sharded(x, mesh)
-
-        local = RayBundle(**{f.name: rows(f.name) for f in dataclasses.fields(RayBundle)})
+        m = n + (-n) % mesh.world_size
+        fields = {f.name: getattr(rays, f.name) for f in dataclasses.fields(RayBundle)}
+        local = RayBundle(**{k: None if x is None else data_sharded(fill_rows(x, m, RAY_PADS[k]), mesh)
+                             for k, x in fields.items()})
         p = {k: sum_gradients(v, mesh) for k, v in named_params(params).items()}
         return gather_rows(query(p, local, camera_index=camera_index), mesh, n)
 
@@ -139,10 +125,8 @@ def make_nerf_emitter_fn(
       (the object box lives in the canonical frame; near and far are
       distances along the ray, which the rigid rotation keeps);
     - `use_fused` serves the query through the kernel query
-      (ops/mega_query.py: K5, or K3 + K4 under
-      NERF_EMITTER_MEGA_PIPELINED=0, read when this is called) where
-      `serves_kernel_query` says so; otherwise the model's own forward
-      serves it;
+      (ops/mega_query.py: K5) where `serves_kernel_query` says so;
+      otherwise the model's own forward serves it;
     - `samples_override` = (proposal_0, proposal_1, nerf) replaces the
       per-ray sample schedule for the emitter query only; counts must be
       multiples of 8;
@@ -162,8 +146,6 @@ def make_nerf_emitter_fn(
     box = torch.as_tensor(object_aabb, dtype=torch.float32, device=device)
     fused_query = None
     if serves_kernel_query(model, use_fused):
-        from ..ops.mega_query import make_mega_radiance_query
-
         fused_query = make_mega_radiance_query(
             model, disable_box=tuple(tuple(float(x) for x in row) for row in box.tolist()),
             device=device,

@@ -187,8 +187,7 @@ def _rays(n, seed):
                      camera_indices=torch.ones((n, 1), dtype=torch.long))
 
 
-@pytest.mark.parametrize("pipelined", [True, False], ids=["k5", "k3_k4"])
-def test_mega_backward_runs_k1_twice_and_never_k2(monkeypatch, pipelined):
+def test_mega_backward_runs_k1_twice_and_never_k2(monkeypatch):
     """The mega query's backward rebuilds the staged graph with K1 placing
     both levels' samples and the field through its twin: `fused_density`
     twice, `fused_field` never (its output would go unread). The gradients
@@ -204,7 +203,7 @@ def test_mega_backward_runs_k1_twice_and_never_k2(monkeypatch, pipelined):
     monkeypatch.setattr(tff, "fused_density", counted("fused_density", tff.fused_density))
     monkeypatch.setattr(tff, "fused_field", counted("fused_field", tff.fused_field))
     pm, rays = _model(), _rays(40, seed=7)
-    query = tmq.make_mega_radiance_query(pm, pipelined=pipelined, device="cpu")
+    query = tmq.make_mega_radiance_query(pm, device="cpu")
     o = rays.origins.clone().requires_grad_()
     out = query(pm, rays.replace(origins=o), camera_index=1)
     assert not calls  # the forward is the kernel query's (its twin on the CPU)

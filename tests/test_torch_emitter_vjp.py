@@ -17,6 +17,7 @@ from nerf_emitter_tpu_torch.models.nerfacto import NerfactoModel
 from nerf_emitter_tpu_torch.ops import fused_field as ff
 from nerf_emitter_tpu_torch.ops import mega_query as mq
 from nerf_emitter_tpu_torch.ops.samplers import sample_pdf, spaced_sample
+from nerf_emitter_tpu_torch.parallel.mesh import fill_rows
 from nerf_emitter_tpu_torch.utils import profiler
 
 torch.set_num_threads(1)
@@ -201,8 +202,8 @@ def test_backward_route_follows_the_parameters(frozen):
         assert profiler.counters() == {"emitter.vjp_rays": N}
         parts = _Parts(params)
         n_pad = mq.TILE_RAYS
-        rows = [ff.pad_rows(getattr(rays, k), n_pad, fill) for k, fill in zip(RAY_NAMES, (0.0, 1.0, 0.1, 0.2))]
-        want = parts.vjp(parts.k3_bins(rows), rows, ff.pad_rows(weights, n_pad, 0.0))
+        rows = [fill_rows(getattr(rays, k), n_pad, mq.RAY_PADS[k]).T.contiguous() for k in RAY_NAMES]
+        want = parts.vjp(parts.k3_bins(rows), rows, fill_rows(weights, n_pad, 0.0).T.contiguous())
         want = [t[:, :N].T for t in want]
     else:
         assert profiler.counters() == {"emitter.recompute_chunks": 1, "emitter.recompute_rays": N}

@@ -98,7 +98,7 @@ def test_check_field_widths_accepts_the_sdf_nerfacto_field():
     p, bws, _, hws, _ = _field_params(_model())
     kernels.check_field_widths([w.shape for w in bws], [w.shape for w in hws], 32)
     tmq.check_query_shapes(p, 256, 96, 48)
-    assert tmq.make_mega_radiance_query(_model(), device="cpu").pipelined
+    assert callable(tmq.make_mega_radiance_query(_model(), device="cpu"))
 
 
 @pytest.mark.parametrize("base,head,n_emb,match", [
@@ -125,9 +125,8 @@ def test_query_build_raises_on_an_unsupported_field_width():
     model = NerfactoModel(AABB, **CFG)
     model.field = NerfactoField(AABB, num_cameras=4, appearance_embedding_dim=32, implementation="freq",
                                 freq_hidden_dim=96, device="cpu")
-    for pipelined in (True, False):
-        with pytest.raises(ValueError, match="hidden widths"):
-            tmq.make_mega_radiance_query(model, pipelined=pipelined, device="cpu")
+    with pytest.raises(ValueError, match="hidden widths"):
+        tmq.make_mega_radiance_query(model, device="cpu")
 
 
 def test_shared_memory_fits_at_the_main_path_shapes():

@@ -3,8 +3,9 @@ Pallas kernels (interpret mode on the CPU) on the same inputs and weights.
 
 K1 `fused_density` and K2 `fused_field`: through the JAX custom_vjp
 functions. K3 and K4: the JAX kernel bodies `_proposal_kernel` and
-`_field_composite_kernel`, launched through pl.pallas_call as
-`make_mega_radiance_query(pipelined=False)` launches them.
+`_field_composite_kernel`, launched through pl.pallas_call as the JAX
+package's two-kernel query (`make_mega_radiance_query(pipelined=False)`)
+launches them; the port reaches K4 by calling it on K3's bins.
 
 The twins repeat the TPU kernels' arithmetic (bf16 operands, f32
 accumulation and bias, the <=4-wide output layer as an f32 reduce with the

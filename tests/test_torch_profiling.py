@@ -156,10 +156,9 @@ def test_profiling_entry_points_run_on_the_cpu_at_a_tiny_size():
     s = ProfileSetup("cpu", num_rays=160, samples=(16, 8), nerf_samples=8)
     q = profile_query.run(s, iters=1)
     assert q["device"] == "cpu" and q["rays"] == 160
-    assert set(q["pipelined_ms"]) == {1, 2, 3, 4}
-    assert all(t > 0 for t in (q["kernel_a_ms"], q["kernel_b_ms"], q["two_kernel_ms"], q["staged_ms"],
-                               *q["pipelined_ms"].values()))
-    assert len(profile_query.report(q).splitlines()) == 11
+    assert all(t > 0 for t in (q["kernel_a_ms"], q["kernel_b_ms"], q["two_kernel_ms"], q["pipelined_ms"],
+                               q["staged_ms"]))
+    assert len(profile_query.report(q).splitlines()) == 8
     a = profile_kernel_a.run(s, iters=1)
     assert list(a["ms"]) == list(tmq.PROPOSAL_MODES) and all(t > 0 for t in a["ms"].values())
     r = profile_resample.run(profile_resample.inputs("cpu", num_rays=32), iters=1)

@@ -1,5 +1,5 @@
-"""The port's emitter query against the JAX package: the staged query, the
-two-kernel query and make_nerf_emitter_fn, on one set of weights (one JAX
+"""The port's emitter query against the JAX package: the staged query, K3
+then K4 (the JAX two-kernel query) and make_nerf_emitter_fn, on one set of weights (one JAX
 `model.init` carried across by the bridge) and numpy-made rays.
 
 On the CPU the port's kernel wrappers run their plain twins and the JAX
@@ -112,8 +112,10 @@ def test_entry_points_default_to_cuda(builder):
 
 def test_query_builders_refuse_what_the_kernels_do_not_compute():
     pm = NerfactoModel(AABB, device="cpu", **CFG)
-    pipelined = make_mega_radiance_query(pm, pipelined=True, device="cpu")  # K5 is ported
-    assert pipelined.pipelined and pipelined.mxu_chunk == 1
+    assert callable(make_mega_radiance_query(pm, device="cpu"))  # K5 is ported
+    for switch in ({"pipelined": False}, {"mxu_chunk": 1}):  # the reference's switches are gone
+        with pytest.raises(TypeError):
+            make_mega_radiance_query(pm, device="cpu", **switch)
     nonlinear = NerfactoModel(AABB, device="cpu", use_fake_contraction=False, **CFG)
     for build in (make_fused_radiance_query, make_mega_radiance_query):
         with pytest.raises(ValueError, match="fake_contraction"):
@@ -156,24 +158,41 @@ def test_staged_query_matches_jax(box):
     assert np.abs(g.numpy() - jg).max() <= 0.15 * np.abs(jg).max()
 
 
+def _k3_then_k4(pm, tr, box, samples, nerf, with_aux=False):
+    """The port's K3, then K4 on K3's bins, on tr's rays (camera 1's
+    appearance vector, f-major first-layer rows): rgb (3, n), and with
+    `with_aux` K4's (4, n) aux."""
+    from nerf_emitter_tpu_torch.ops import fused_field as tff
+    from nerf_emitter_tpu_torch.ops import mega_query as tmq
+
+    p = tff.named_params(pm)
+    rows = [t.T.contiguous() for t in (tr.origins, tr.directions, tr.nears, tr.fars)]
+    kw = dict(aabb_lo=(-1.5,) * 3, aabb_inv_ext=(1 / 3,) * 3, disable_box=box, avg_density=1.0)
+    (ws0, bs0), (ws1, bs1) = tff._mlp_params(p, "proposal_0.mlp"), tff._mlp_params(p, "proposal_1.mlp")
+    bws, bbs = tff._mlp_params(p, "field.base_mlp")
+    hws, hbs = tff._mlp_params(p, "field.head_mlp")
+    with torch.no_grad():
+        sbins = tmq.proposal_bins(*rows, tff.permute_first(ws0, 4), bs0, tff.permute_first(ws1, 6), bs1,
+                                  s0=samples[0], s1=samples[1], s2=nerf, freqs0=4, freqs1=6, **kw)
+        return tmq.field_composite(sbins, *rows, p["field.appearance_embedding.weight"][1],
+                                   tff.permute_first(bws, 10), bbs, hws, hbs, s2=nerf, freqs=10, hdr=True,
+                                   rgb_bias=0.0, with_aux=with_aux, **kw)
+
+
 def test_two_kernel_query_matches_jax_and_staged():
-    """Port K3+K4 query vs JAX make_mega_radiance_query(pipelined=False) at
-    n=150 (tile padding), and vs the port's staged query at the JAX bar of
+    """The port's K3, then K4 on K3's bins, vs JAX
+    make_mega_radiance_query(pipelined=False) at n=150 (tile padding on
+    the JAX side), and vs the port's staged query at the JAX bar of
     tests/test_fields.py (rtol 3e-2, atol 1e-3). The inverse CDF differs in
     form (segment walk vs telescoped ramps, ~1e-4 of the spacing range)."""
     jm, params, pm = _pair(n=150)
     jr, tr = _both(_rays_np(150, seed=3))
     ref = j_mega_query(jm, pipelined=False)(params, jr, camera_index=jnp.int32(1))
-    mega = make_mega_radiance_query(pm, pipelined=False, device="cpu")
-    out = mega(pm, tr, camera_index=1)
+    out = _k3_then_k4(pm, tr, None, (12, 8), 6).T
     assert out.shape == (150, 3)
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=3e-2, atol=1e-3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=3e-2, atol=1e-3)
     staged = make_fused_radiance_query(pm, device="cpu")(pm, tr, camera_index=1)
-    np.testing.assert_allclose(out.detach().numpy(), staged.detach().numpy(), rtol=3e-2, atol=1e-3)
-
-    o = tr.origins.clone().requires_grad_()
-    g = torch.autograd.grad(mega(pm, tr.replace(origins=o), camera_index=1).sum(), o)[0]
-    assert torch.isfinite(g).all() and g.abs().sum() > 0
+    np.testing.assert_allclose(out.numpy(), staged.detach().numpy(), rtol=3e-2, atol=1e-3)
 
 
 def _x_unit_d(n, seed):
@@ -221,13 +240,11 @@ def test_emitter_fn_matches_jax(use_fused):
 
 def test_two_kernel_query_splits_off_the_background():
     """K4's aux output (acc, rgb_last per ray) on the bins K3 gives the
-    two-kernel query's rays reproduces its answer exactly and splits it into
-    the foreground sum(w rgb) and the background term rgb_last (1 - acc);
+    query's rays reproduces the query's (K5's) answer exactly and splits it
+    into the foreground sum(w rgb) and the background term rgb_last (1 - acc);
     foreground and accumulation are held to JAX model.apply with a black
     background at the mega bar (rtol 3e-2, atol 1e-3). far=4, as in
     test_emitter_fn_matches_jax."""
-    from nerf_emitter_tpu_torch.ops import fused_field as tff
-    from nerf_emitter_tpu_torch.ops import mega_query as tmq
     from nerf_emitter_tpu_torch.ops.colliders import aabb_far_intersect_collider
     from nerf_emitter_tpu_torch.utils.coords import unit_to_world
 
@@ -239,19 +256,8 @@ def test_two_kernel_query_splits_off_the_background():
                    fars=torch.full((n, 1), far), camera_indices=torch.ones(n, 1, dtype=torch.long))
     tr = aabb_far_intersect_collider(tr, torch.tensor(OBJECT_BOX), far=far)
     with torch.no_grad():
-        out = make_mega_radiance_query(pm, disable_box=OBJECT_BOX, pipelined=False, device="cpu")(
-            pm, tr, camera_index=1)
-        p = tff.named_params(pm)
-        rows = [t.T.contiguous() for t in (tr.origins, tr.directions, tr.nears, tr.fars)]
-        kw = dict(aabb_lo=(-1.5,) * 3, aabb_inv_ext=(1 / 3,) * 3, disable_box=OBJECT_BOX, avg_density=1.0)
-        (ws0, bs0), (ws1, bs1) = tff._mlp_params(p, "proposal_0.mlp"), tff._mlp_params(p, "proposal_1.mlp")
-        sbins = tmq.proposal_bins(*rows, tff.permute_first(ws0, 4), bs0, tff.permute_first(ws1, 6), bs1,
-                                  s0=16, s1=8, s2=8, freqs0=4, freqs1=6, **kw)
-        bws, bbs = tff._mlp_params(p, "field.base_mlp")
-        hws, hbs = tff._mlp_params(p, "field.head_mlp")
-        rgb, aux = tmq.field_composite(sbins, *rows, p["field.appearance_embedding.weight"][1],
-                                       tff.permute_first(bws, 10), bbs, hws, hbs, s2=8, freqs=10,
-                                       hdr=True, rgb_bias=0.0, with_aux=True, **kw)
+        out = make_mega_radiance_query(pm, disable_box=OBJECT_BOX, device="cpu")(pm, tr, camera_index=1)
+    rgb, aux = _k3_then_k4(pm, tr, OBJECT_BOX, (16, 8), 8, with_aux=True)
     assert torch.equal(rgb.T, out)
     fg, acc = (rgb - aux[1:] * (1.0 - aux[:1])).T, aux[0]
     jr = JRayBundle(**{k: jnp.asarray(v.numpy()) for k, v in vars(tr).items() if v is not None})
