@@ -2,8 +2,10 @@
 sampling (port of nerf_emitter_tpu/renderer/integrator.py).
 
 Every surface interaction is traced first; then one flat batch of emitter
-queries is answered at once (the surface's shadow rays, then the escaped
-primary rays), which is the shape the NeRF emitter wants. Escaped rays see
+queries is answered at once, which is the shape the NeRF emitter wants: a
+row asks for the surface's secondary ray where the primary ray hits and
+for the primary ray where it escapes (its surface answer is never read),
+and in MIS 'both' mode the second strategy's rays follow. Escaped rays see
 the emitter function `emitter_fn(x, d) -> rgb` (the NeRF) or the scene's
 envmap. Curvature and normal-depth render modes serve the regulariser and
 the tools.
@@ -150,11 +152,13 @@ def _count_asked(x: torch.Tensor, d: torch.Tensor) -> None:
         profiler.count("emitter.grad_rays", n)
 
 
-def _count_used(kept: torch.Tensor) -> None:
-    """emitter.used_rays: the emitter's answers that the estimate keeps (a
-    sum on the device), outside a backward, as emitter.rays counts."""
+def _count_rows(name: str, rows: torch.Tensor) -> None:
+    """A counter of the emitter rows that the mask `rows` marks (a sum on the
+    device), outside a backward, as emitter.rays counts: emitter.used_rays,
+    the answers that the estimate keeps; emitter.merged_rays, the rows that
+    ask for an escaped primary ray."""
     if not _in_backward():
-        profiler.count("emitter.used_rays", kept.sum())
+        profiler.count(name, rows.sum())
 
 
 def render_direct(
@@ -179,6 +183,7 @@ def render_direct(
     count_used = emitter_fn is not None and profiler.enabled()
 
     def radiance(x, d):
+        """The emitter's answers for the rows (x, d): one call."""
         if emitter_fn is not None:
             with profiler.span("emitter.forward"):
                 if profiler.enabled():
@@ -218,6 +223,8 @@ def render_direct(
     wi = -dirs
     x_off = x + config.shadow_eps * n
 
+    # each term of the estimate: its secondary direction (warped), its
+    # visibility, f, its weight and the warp's area factor
     if config.mis_mode == "one_sample":
         # pick the BSDF or the emitter strategy per ray; with the balance
         # heuristic the estimator is 2 f L V / (pdf_e + pdf_b) at the one
@@ -230,13 +237,7 @@ def render_direct(
         d_w, jac_s = warp_secondary(x_off, d)
         f = _bsdf_eval(scene, x, n, wi, d_w)
         vis = visible(x_off, d_w)
-        le = radiance(x_off, d_w)
-        if count_used:
-            _count_used(hit & vis)
-        w = 2.0 / torch.clamp(pdf_e_d + pdf_b_d, min=1e-9)
-        surface_rgb = torch.where(vis[:, None], f * le * w[:, None], 0.0)
-        if jac_s is not None:
-            surface_rgb = surface_rgb * jac_s[:, None]
+        terms = [(d_w, vis, f, 2.0 / torch.clamp(pdf_e_d + pdf_b_d, min=1e-9), jac_s)]
     else:
         # strategy A, emitter sampling
         d_e, pdf_e = _emitter_sample(draws.emit, scene, x_off)
@@ -244,35 +245,47 @@ def render_direct(
         d_e_w, jac_e = warp_secondary(x_off, d_e)
         f_e = _bsdf_eval(scene, x, n, wi, d_e_w)
         vis_e = visible(x_off, d_e_w)
-        le = radiance(x_off, d_e_w)
-        if count_used:
-            _count_used(hit & vis_e)
         w_mis_e = pdf_e / torch.clamp(pdf_e + pdf_e_b, min=1e-9)
-        contrib_e = torch.where(vis_e[:, None], f_e * le * (w_mis_e / torch.clamp(pdf_e, min=1e-9))[:, None], 0.0)
-        if jac_e is not None:
-            contrib_e = contrib_e * jac_e[:, None]
         # strategy B, BSDF sampling
         d_b, pdf_b = _bsdf_sample(draws.bsdf, scene, x, n, wi)
         pdf_b_e = _emitter_pdf(scene, x_off, d_b)
         d_b_w, jac_b = warp_secondary(x_off, d_b)
         f_b = _bsdf_eval(scene, x, n, wi, d_b_w)
         vis_b = visible(x_off, d_b_w)
-        lb = radiance(x_off, d_b_w)
-        if count_used:
-            _count_used(hit & vis_b)
         w_mis_b = pdf_b / torch.clamp(pdf_b + pdf_b_e, min=1e-9)
-        contrib_b = torch.where(vis_b[:, None], f_b * lb * (w_mis_b / torch.clamp(pdf_b, min=1e-9))[:, None], 0.0)
-        if jac_b is not None:
-            contrib_b = contrib_b * jac_b[:, None]
-        surface_rgb = contrib_e + contrib_b
+        terms = [(d_e_w, vis_e, f_e, w_mis_e / torch.clamp(pdf_e, min=1e-9), jac_e),
+                 (d_b_w, vis_b, f_b, w_mis_b / torch.clamp(pdf_b, min=1e-9), jac_b)]
 
-    # escaped primary rays see the emitter directly
+    # the emitter's answers. Escaped primary rays see the emitter directly;
+    # where it is visible, one call answers them with the terms: the
+    # estimate reads a term's answer only where the primary ray hits, so
+    # where it escapes the first term's row asks for the primary ray in its
+    # place, and the second term's rows (MIS 'both') follow
     if scene.hide_emitters:
+        answers = [radiance(x_off, term[0]) for term in terms]
         miss_rgb = torch.zeros((n_rays, 3), device=origins.device)
     else:
-        miss_rgb = radiance(origins, dirs)
-        if count_used:
-            _count_used(~hit)
+        esc = ~hit[:, None]
+        x_q = torch.where(esc, origins, x_off)
+        d_q = torch.where(esc, dirs, terms[0][0])
+        if len(terms) > 1:
+            x_q, d_q = torch.cat([x_q, x_off]), torch.cat([d_q, terms[1][0]])
+        answers = radiance(x_q, d_q).split(n_rays)
+        miss_rgb = answers[0]
+    if count_used:
+        kept = [hit & term[1] for term in terms]
+        if not scene.hide_emitters:
+            kept[0] = kept[0] | ~hit
+            _count_rows("emitter.merged_rays", ~hit)
+        for k in kept:
+            _count_rows("emitter.used_rays", k)
+
+    surface_rgb = None
+    for (_, vis, f, w, jac_t), le in zip(terms, answers):
+        term_rgb = torch.where(vis[:, None], f * le * w[:, None], 0.0)
+        if jac_t is not None:
+            term_rgb = term_rgb * jac_t[:, None]
+        surface_rgb = term_rgb if surface_rgb is None else surface_rgb + term_rgb
     rgb = torch.where(hit[:, None], surface_rgb, miss_rgb)
     if jac is not None:
         # the primary warp's area factor (primal 1) carries the silhouette

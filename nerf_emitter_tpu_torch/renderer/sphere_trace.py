@@ -177,13 +177,19 @@ def differentiable_hit_t(
 ) -> torch.Tensor:
     """Attach the implicit derivatives to a detached hit distance: the
     Newton-step expression below has the value t* and the derivatives
-    dt = -df / <grad f, d> with respect to the SDF values, o and d."""
+    dt = -df / <grad f, d> with respect to the SDF values, o and d.
+
+    A denominator under eps moves away from 0 on its own side: the
+    reference adds +eps to sign(denom) eps, which is 0 for a small negative
+    one, so a grazing hit's t (and its pixel, and the loss) is 0/0 = NaN
+    there; here it is -2 eps, and the other cases are the reference's."""
     t_det = t_star.detach()
     x = origins + t_det[:, None] * directions
     f = sdf_eval(sdf, x)
     g = sdf_gradient(sdf.detach(), x.detach())
     denom = torch.sum(g * directions.detach(), dim=-1)
-    denom = torch.where(denom.abs() < eps, torch.sign(denom) * eps + eps, denom)
+    side = torch.where(denom < 0, -1.0, 1.0)
+    denom = torch.where(denom.abs() < eps, torch.sign(denom) * eps + side * eps, denom)
     return t_det - (f - f.detach()) / denom
 
 

@@ -2,8 +2,8 @@
 MIS modes with the warp and the soft silhouette, under an envmap and under
 vMF guiding with an emitter function (outputs and the gradient with
 respect to the SDF and the albedo), render_spp's regrouping and
-checkpointing, the curvature and normal-depth modes, and draws from a
-generator. JAX's draws are handed to the port (test_torch_renderer.py's
+checkpointing, the curvature and normal-depth modes, draws from a
+generator, and the rows of render_direct's emitter calls. JAX's draws are handed to the port (test_torch_renderer.py's
 `j_direct_draws`); where f32 rounding in another order flips a grazing
 ray's hit, the share of flipped rays is held, then the rest tightly."""
 
@@ -19,6 +19,7 @@ from nerf_emitter_tpu.renderer import integrator as ji
 from nerf_emitter_tpu.renderer import sphere_trace as jst
 from nerf_emitter_tpu_torch.renderer import integrator as ti
 from nerf_emitter_tpu_torch.renderer import sphere_trace as tst
+from nerf_emitter_tpu_torch.utils import profiler
 from test_torch_renderer import (FLIP_SHARE, TRACE, _close, emitter_fns, j_direct_draws, j_spp_draws,
                                  pinhole_rays, scene_pair, t_)
 
@@ -79,6 +80,63 @@ def test_render_direct_matches_jax(mis, reparam, emitter):
         a, b = a.double().flatten(), torch.from_numpy(np.asarray(b, np.float64)).flatten()
         assert float(b.norm()) > 0
         assert float((a - b).norm() / b.norm()) < 2e-3 and float(a @ b / (a.norm() * b.norm())) > 0.9999
+
+
+@pytest.mark.parametrize("hide", [False, True])
+@pytest.mark.parametrize("mis", ["one_sample", "both"])
+def test_render_direct_asks_the_emitter_once(mis, hide, monkeypatch):
+    """With the emitter visible, render_direct makes one emitter call of N
+    rows (one_sample) or 2N (both): row i asks for the primary ray where it
+    escapes and for the surface's first secondary ray where it hits, the
+    second strategy's rays follow, and the escaped pixels read the answer
+    of their own row; emitter.merged_rays counts the escaped rows. With the
+    emitter hidden, each secondary ray has its own call of N rows, as the
+    visibility traces saw them, and escaped pixels are black."""
+    _, ts = scene_pair("vmf")
+    ts = ts.replace(hide_emitters=hide)
+    o, d = (t_(a) for a in pinhole_rays(12, span=(0.15, 0.85)))
+    n = o.shape[0]
+    calls, secondary = [], []
+    real_trace = ti.sphere_trace
+
+    def sphere_trace(sdf, x_from, dirs, config):
+        secondary.append((x_from.detach().clone(), dirs.detach().clone()))
+        return real_trace(sdf, x_from, dirs, config)
+
+    def emitter(x, dd):
+        calls.append((x.detach().clone(), dd.detach().clone()))
+        return 1.0 + dd.abs() + 0.1 * x
+
+    monkeypatch.setattr(ti, "sphere_trace", sphere_trace)
+    cfg = ti.RenderConfig(trace=tst.SphereTraceConfig(**TRACE), mis_mode=mis, reparam="soft")
+    profiler.reset()
+    profiler.enable()
+    try:
+        out = ti.render_direct(ts, o, d, torch.Generator().manual_seed(2), emitter_fn=emitter, config=cfg)
+        counters = profiler.counters()
+    finally:
+        profiler.disable()
+        profiler.reset()
+    hit = out["hit"]
+    assert 0 < int(hit.sum()) < n and len(secondary) == (1 if mis == "one_sample" else 2)
+    if hide:
+        assert [c[0].shape[0] for c in calls] == [n] * len(secondary)
+        for (x, dd), (x_s, d_s) in zip(calls, secondary):
+            assert torch.equal(x, x_s) and torch.equal(dd, d_s)
+        assert "emitter.merged_rays" not in counters
+        assert torch.equal(out["rgb"][~hit], torch.zeros_like(out["rgb"][~hit]))
+        return
+    assert len(calls) == 1
+    x, dd = calls[0]
+    assert x.shape == dd.shape == (n * len(secondary), 3)
+    esc = ~hit[:, None]
+    assert torch.equal(x[:n], torch.where(esc, o, secondary[0][0]))
+    assert torch.equal(dd[:n], torch.where(esc, d, secondary[0][1]))
+    if mis == "both":
+        assert torch.equal(x[n:], secondary[1][0]) and torch.equal(dd[n:], secondary[1][1])
+    assert torch.equal(out["rgb"][~hit], emitter(o, d)[~hit])
+    assert counters["emitter.merged_rays"] == int((~hit).sum())
+    assert counters["emitter.rays"] == x.shape[0]
 
 
 def test_render_spp_regroups_and_checkpoints():

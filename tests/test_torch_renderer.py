@@ -13,6 +13,8 @@ CDF interval) and hands them to the port. Where f32 rounding in another
 order flips a grazing ray's hit, the share of flipped rays is held, then
 the rest tightly."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -257,20 +259,46 @@ def test_differentiable_hit_t_gradients_match_jax(sdf_np):
 
 
 def test_hit_t_is_nan_where_the_reference_clamp_is_zero():
-    """differentiable_hit_t clamps a small denominator <grad f, d> to
-    sign(denom) eps + eps, which is 0 for a small negative one: t is then
-    0 / 0 = NaN. Both packages give NaN on the same rays, all of them
-    misses (the render keeps the miss branch there, and the backward's NaN
-    lands in the cell at node 0, which validate_gradients zeroes). The port
-    keeps the reference's formula."""
+    """The reference's differentiable_hit_t clamps a small denominator
+    <grad f, d> to sign(denom) eps + eps, which is 0 for a small negative
+    one: its t is then 0 / 0 = NaN (here on misses; on the card a grazing
+    hit made a pixel, and the takeover's loss, NaN). The port moves such a
+    denominator to -2 eps: on those rays its t is t* and its derivatives
+    are finite; on every other ray it equals the reference's."""
     js, ts = scene_pair("envmap")
     o, d = pinhole_rays(span=(0.15, 0.85))
-    jc, tc = jst.SphereTraceConfig(**TRACE), tst.SphereTraceConfig(**TRACE)
-    jt, jh = jst.sphere_trace(js.sdf, jnp.asarray(o), jnp.asarray(d), jc)
-    j_nan = np.isnan(np.asarray(jst.differentiable_hit_t(js.sdf, jnp.asarray(o), jnp.asarray(d), jt)))
-    tt, th = tst.sphere_trace(ts.sdf, t_(o), t_(d), tc)
-    t_nan = torch.isnan(tst.differentiable_hit_t(ts.sdf, t_(o), t_(d), tt)).numpy()
-    assert t_nan.any() and np.array_equal(t_nan, j_nan) and not th.numpy()[t_nan].any()
+    tt, _ = tst.sphere_trace(ts.sdf, t_(o), t_(d), tst.SphereTraceConfig(**TRACE))
+    # the reference's formula at the port's t*
+    j_t = np.asarray(jst.differentiable_hit_t(js.sdf, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tt.numpy())))
+    j_nan = np.isnan(j_t)
+    sdf = ts.sdf.clone().requires_grad_()
+    t = tst.differentiable_hit_t(sdf, t_(o), t_(d), tt)
+    assert j_nan.any() and torch.equal(t.detach(), tt)
+    _close(t, j_t, 0, 0, ~j_nan)
+    t.sum().backward()
+    assert bool(torch.isfinite(sdf.grad).all())
+
+
+@pytest.mark.parametrize("side", [-1.0, 0.0, 1.0])
+def test_hit_t_at_a_grazing_hit(side):
+    """A hit on the plane z = 0.5 by a ray along it, <grad f, d> = side x
+    1e-7 (under eps = 1e-6): t is t*, and dt/df at the hit's cell is
+    finite, of the sign the denominator's clamp gives (-2 eps for a small
+    negative one, eps for 0, 2 eps for a small positive one)."""
+    res = 9
+    z = torch.linspace(0.0, 1.0, res)
+    sdf = (z - 0.5).expand(res, res, res).contiguous().requires_grad_()
+    d = torch.tensor([[1.0, 0.0, side * 1e-7]])
+    o = torch.tensor([[0.1, 0.5, 0.5]])
+    t_star = torch.tensor([0.4])
+    t = tst.differentiable_hit_t(sdf, o, d, t_star)
+    assert torch.equal(t.detach(), t_star)
+    t.sum().backward()
+    g = sdf.grad
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+    # dt = -df / denom, and df/d(sdf) sums to 1 over the cell's corners
+    want = -1.0 / ({-1.0: -2e-6, 0.0: 1e-6, 1.0: 2e-6}[side])
+    assert math.isclose(float(g.sum()), want, rel_tol=1e-3)
 
 
 # ---- BSDFs and emitters
