@@ -20,7 +20,7 @@ from ..cameras.rays import RayBundle
 from ..fields.nerfacto_field import HashMLPDensityField, NerfactoField
 from ..fields.rotater import exp_so3
 from ..ops import rendering
-from ..ops.samplers import proposal_sample
+from ..ops.samplers import proposal_sample, samples_at
 from ..utils.device import resolve_device
 from ..utils.math import luminance
 
@@ -126,9 +126,17 @@ class NerfactoModel(nn.Module):
         rotater=None,
         camera_rot_ids: Optional[torch.Tensor] = None,
         rotation_radius: float = 0.6,
+        spacing_bins: Optional[torch.Tensor] = None,
     ) -> dict[str, Any]:
-        """rays (n, ...) -> {'rgb'} or {'rgb', 'accumulation', 'depth'};
-        differentiable end to end.
+        """rays (n, ...) -> {'rgb', 'spacing_bins'} (hdr_radiance_only) or
+        {'rgb', 'accumulation', 'depth'}; differentiable end to end.
+
+        'spacing_bins' are the final samples' spacing edges (n, S + 1). Given
+        back as `spacing_bins`, they replace the proposal stage: the same
+        rays then give the same samples and answer, and the same gradients
+        by the rays, since the proposal resample stops the gradient at its
+        weights (the edges are constants; only near, far and the ray place
+        the samples).
 
         train=True adds 'weights_list' (each proposal level's weights, then
         the field's), 'spacing_bins_list' (each level's spacing edges
@@ -167,15 +175,18 @@ class NerfactoModel(nn.Module):
                 return net(pos, disable_aabb=disable_aabb, disable_aabb_on=disable_aabb_on)
             return fn
 
-        ray_samples, weights_list, samples_list = proposal_sample(
-            ray_bundle,
-            [make_density_fn(net) for net in self.proposal_networks],
-            list(self.num_proposal_samples),
-            self.num_nerf_samples,
-            generator=generator,
-            proposal_weights_anneal=proposal_anneal,
-            single_jitter=self.single_jitter,
-        )
+        if spacing_bins is None:
+            ray_samples, weights_list, samples_list = proposal_sample(
+                ray_bundle,
+                [make_density_fn(net) for net in self.proposal_networks],
+                list(self.num_proposal_samples),
+                self.num_nerf_samples,
+                generator=generator,
+                proposal_weights_anneal=proposal_anneal,
+                single_jitter=self.single_jitter,
+            )
+        else:
+            ray_samples, weights_list, samples_list = samples_at(ray_bundle, spacing_bins), [], []
         positions = ray_samples.frustums.get_positions()
         dirs = ray_bundle.directions[..., None, :].expand(positions.shape)
         if use_rotater:
@@ -193,7 +204,8 @@ class NerfactoModel(nn.Module):
             hdr=self.hdr, is_training=train, generator=generator,
         )
         if hdr_radiance_only:
-            return {"rgb": rgb}
+            return {"rgb": rgb, "spacing_bins": torch.cat([ray_samples.spacing_starts,
+                                                           ray_samples.spacing_ends[..., -1:]], dim=-1)}
         outputs = {
             "rgb": rgb,
             "accumulation": rendering.composite_accumulation(weights),

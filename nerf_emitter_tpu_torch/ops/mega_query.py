@@ -50,6 +50,12 @@ and the recompute's reductions and matrix products round differently as
 their shapes change (past 2^31 elements, at 2^17 rays, the answer moved by
 1.9e-3 and the gradient by up to 30% against the same rays asked in
 halves). The vjp kernel works ray by ray, so it needs no chunks.
+
+The same chunks serve the emitter query of a field that no kernel serves
+(`pipelines/nerf_emitter.py`: the `hash` field, and any field on the
+CPU): `chunked_forward` answers each chunk without a graph, and
+`recompute_grads`, the loop of the recompute above, differentiates each
+chunk again with one.
 """
 
 from __future__ import annotations
@@ -490,50 +496,83 @@ class _MegaQuery(torch.autograd.Function):
     def backward(ctx, g):
         need = ctx.needs_input_grad[1:]
         o, d, near, far, *params = ctx.saved_tensors
+        run = ctx.run
         if any(need[4:]):
-            return (None, *_recompute_grads(ctx, g, need, (o, d, near, far), params))
+            inputs = ("origins", "directions", "nears", "fars")
+            fields = {f.name: getattr(run.rays, f.name) for f in dataclasses.fields(run.rays)}
+            fields.update(zip(inputs, (o, d, near, far)))
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(params, need[4:])]
+
+            def staged(rows, ps):
+                return run.staged(dict(zip(run.names, ps)), type(run.rays)(**rows), run.camera_index)
+
+            ray_grads, param_grads = recompute_grads(staged, fields, dict(zip(inputs, need[:4])), leaves, g)
+            return (None, *ray_grads, *param_grads)
         profiler.count("emitter.vjp_rays", o.shape[0])
-        grads = ctx.run.vjp(dict(zip(ctx.run.names, params)), o, d, near, far, g)
+        grads = run.vjp(dict(zip(run.names, params)), o, d, near, far, g)
         return (None, *[gi if nd else None for gi, nd in zip(grads, need[:4])], *[None] * len(params))
 
 
-def _recompute_grads(ctx, g, need, ray_inputs, params):
-    """The gradients of the rays and the parameters, by autograd through the
-    staged query recomputed in RECOMPUTE_RAYS-ray chunks."""
-    params = [t.detach().requires_grad_(n) for t, n in zip(params, need[4:])]
-    fields = {f.name: getattr(ctx.run.rays, f.name) for f in dataclasses.fields(ctx.run.rays)}
-    fields.update(zip(("origins", "directions", "nears", "fars"), ray_inputs))
-    n = ray_inputs[0].shape[0]
+# ---------------------------------------------------------------------------
+# the chunked recompute: the kernel query's backward with a NeRF parameter
+# trained, and the emitter query of a field no kernel serves
+# (pipelines/nerf_emitter.py)
+# ---------------------------------------------------------------------------
+
+
+def _chunks(fields: dict, n: int):
+    """(start, stop, rows) for each chunk of the n rows of `fields` ({name:
+    (n, ...) tensor or None}): RECOMPUTE_RAYS rows a chunk (n itself where n
+    is no more), each field's rows start:stop padded to the chunk with its
+    RAY_PADS value (a field of no RayBundle name: its last row repeated)."""
     chunk = n if n <= RECOMPUTE_RAYS else RECOMPUTE_RAYS
-    chunks = -(-n // chunk)
-    profiler.count("emitter.recompute_chunks", chunks)
-    profiler.count("emitter.recompute_rays", chunks * chunk)
-    ray_grads = [[] for _ in range(4)]
-    param_grads = [None] * len(params)
-    for start in range(0, n, chunk):
+    for start in range(0, n, chunk) if n else [0]:
         stop = min(start + chunk, n)
-        part = {k: None if v is None else fill_rows(v[start:stop], chunk, RAY_PADS[k]) for k, v in fields.items()}
-        leaves = [part[k].detach().requires_grad_(nd)
-                  for k, nd in zip(("origins", "directions", "nears", "fars"), need[:4])]
+        yield start, stop, {k: None if v is None else fill_rows(v[start:stop], chunk, RAY_PADS.get(k))
+                            for k, v in fields.items()}
+
+
+def chunked_forward(fn, fields: dict, n: int) -> tuple:
+    """fn(rows) -> a tuple of (chunk, ...) tensors on each chunk of the n
+    rows of `fields` (`_chunks`), without a graph; each tensor's n rows.
+    Counts emitter.forward_chunks."""
+    outs = []
+    with torch.no_grad():
+        for start, stop, rows in _chunks(fields, n):
+            profiler.count("emitter.forward_chunks", 1)
+            outs.append([t[:stop - start] for t in fn(rows)])
+    return tuple(torch.cat(ts) for ts in zip(*outs))
+
+
+def recompute_grads(fn, fields: dict, need: dict, params: list, g: torch.Tensor):
+    """The gradients given g (n, ...) at the answer of fn(rows, params), by
+    autograd through fn recomputed with a graph on each chunk of `fields`
+    (`_chunks`), so that memory holds one chunk's graph: ([the gradient
+    of each field named in `need`, in its order, or None where `need` says
+    False], [each parameter's gradient summed over the chunks, or None
+    where it requires none]). Counts emitter.recompute_chunks and
+    emitter.recompute_rays (the chunks' rows, the padding included)."""
+    n = g.shape[0]
+    ray_grads = {k: [] for k in need}
+    param_grads = [None] * len(params)
+    for start, stop, rows in _chunks(fields, n):
+        leaves = {k: rows[k].detach().requires_grad_(nd) for k, nd in need.items()}
         with torch.enable_grad():
-            rays = type(ctx.run.rays)(**dict(part, origins=leaves[0], directions=leaves[1], nears=leaves[2],
-                                             fars=leaves[3]))
-            out = ctx.run.staged(dict(zip(ctx.run.names, params)), rays, ctx.run.camera_index)
-        wanted = [t for t in leaves + params if t.requires_grad]
-        got = iter(torch.autograd.grad(out, wanted, fill_rows(g[start:stop], chunk, 0.0), allow_unused=True))
-        for i, t in enumerate(leaves):
+            out = fn(dict(rows, **leaves), params)
+        profiler.count("emitter.recompute_chunks", 1)
+        profiler.count("emitter.recompute_rays", out.shape[0])
+        wanted = [t for t in [*leaves.values(), *params] if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, fill_rows(g[start:stop], out.shape[0], 0.0), allow_unused=True))
+        for k, t in leaves.items():
             if t.requires_grad:
                 gi = next(got)
-                ray_grads[i].append(torch.zeros_like(t[:stop - start]) if gi is None else gi[:stop - start])
-            else:
-                ray_grads[i].append(None)
+                ray_grads[k].append(torch.zeros_like(t[:stop - start]) if gi is None else gi[:stop - start])
         for i, t in enumerate(params):
             if t.requires_grad:
                 gi = next(got)
                 param_grads[i] = gi if param_grads[i] is None else (param_grads[i] if gi is None
                                                                      else param_grads[i] + gi)
-    rays_out = [torch.cat(r) if r[0] is not None else None for r in ray_grads]
-    return (*rays_out, *param_grads)
+    return [torch.cat(ray_grads[k]) if need[k] else None for k in need], param_grads
 
 
 class _MegaRun:

@@ -128,15 +128,28 @@ def sample_pdf(
     frac = (u[..., :, None] - cdf[..., None, :-1]) * inv_d_cdf[..., None, :]
     new_bins = existing[..., :1] + torch.sum(d_bins[..., None, :] * frac.clamp(0.0, 1.0), dim=-1)
 
+    return samples_at(ray_bundle, new_bins, spacing_fn_inv=spacing_fn_inv)
+
+
+def samples_at(
+    ray_bundle: RayBundle,
+    spacing_bins: torch.Tensor,
+    *,
+    spacing_fn_inv: Callable = spacing_piecewise_inv,
+) -> RaySamples:
+    """The samples between the spacing edges `spacing_bins` (n_rays, S + 1)
+    in warped space, mapped between each ray's near and far: the edges are
+    constants, and the samples' distances differentiate by near, far and the
+    ray."""
     spacing_fn = _SPACING_FWD[spacing_fn_inv]
     s_near = spacing_fn(ray_bundle.nears)
     s_far = spacing_fn(ray_bundle.fars)
-    euclid = spacing_fn_inv(new_bins * (s_far - s_near) + s_near)
+    euclid = spacing_fn_inv(spacing_bins * (s_far - s_near) + s_near)
     return ray_bundle.get_ray_samples(
         bin_starts=euclid[..., :-1],
         bin_ends=euclid[..., 1:],
-        spacing_starts=new_bins[..., :-1],
-        spacing_ends=new_bins[..., 1:],
+        spacing_starts=spacing_bins[..., :-1],
+        spacing_ends=spacing_bins[..., 1:],
     )
 
 

@@ -38,7 +38,7 @@ from ..guiding.path_guiding import EmitterImageGuiding, EnvGuiding, VMFGuiding
 from ..models.nerfacto import NerfactoModel
 from ..ops.colliders import aabb_far_intersect_collider
 from ..ops.fused_field import named_params
-from ..ops.mega_query import RAY_PADS, make_mega_radiance_query
+from ..ops.mega_query import RAY_PADS, chunked_forward, make_mega_radiance_query, recompute_grads
 from ..parallel.mesh import Mesh, data_sharded, fill_rows, gather_rows, replicated, shard_axis, sum_gradients
 from ..renderer.emitters import VMFMixture
 from ..renderer.grid3d import sphere_sdf_grid, upsample_grid
@@ -64,13 +64,50 @@ def serves_kernel_query(model, use_fused: bool) -> bool:
     fake contraction (what the kernels compute) on a model on CUDA, and
     only when asked (`use_fused`). The reference gates the same way (freq
     on its TPU backend). The decision reads the configuration alone; a
-    kernel that then fails to build or launch raises."""
+    kernel that then fails to build or launch raises. Where it says no,
+    `make_nerf_emitter_fn` runs the model's forward in chunks
+    (`_ChunkedQuery`; the `hash` field's encoding is K7 on the card)."""
     return (
         bool(use_fused)
         and model.implementation == "freq"
         and bool(model.use_fake_contraction)
         and model.device.type == "cuda"
     )
+
+
+class _ChunkedQuery(torch.autograd.Function):
+    """The emitter query through the model's forward, in RECOMPUTE_RAYS-row
+    chunks (ops/mega_query.py): query(rows, params) -> (radiance, the final
+    samples' spacing edges) of the rows {"origins": world-space origins,
+    "directions": ..., and "spacing_bins" where the edges are given} with
+    the parameters `params` (the model's, in its order). The forward
+    answers each chunk without a graph and keeps the rays and the edges,
+    (num_nerf_samples + 1) values a ray; the backward recomputes each
+    chunk from its edges with a graph, the field's samples alone, and
+    returns the gradients of the origins, the directions and the
+    parameters that require one. The proposal resample stops the gradient
+    at its weights, so the edges are constants, as the bins of the kernel
+    query's frozen backward are. Memory holds one chunk's graph whatever
+    the batch; the model's forward in one call keeps ~173 KB a ray with a
+    gradient at nerfacto's published widths."""
+
+    @staticmethod
+    def forward(ctx, query, origins, directions, *params):
+        ctx.query = query
+        rgb, bins = chunked_forward(lambda rows: query(rows, params),
+                                    {"origins": origins, "directions": directions}, origins.shape[0])
+        ctx.save_for_backward(origins, directions, bins, *params)
+        return rgb
+
+    @staticmethod
+    @profiler.span("emitter.backward")
+    def backward(ctx, g):
+        origins, directions, bins, *params = ctx.saved_tensors
+        need = dict(zip(("origins", "directions"), ctx.needs_input_grad[1:3]))
+        leaves = [t.detach().requires_grad_(nd) for t, nd in zip(params, ctx.needs_input_grad[3:])]
+        fields = {"origins": origins, "directions": directions, "spacing_bins": bins}
+        ray_grads, param_grads = recompute_grads(lambda rows, ps: ctx.query(rows, ps)[0], fields, need, leaves, g)
+        return (None, *ray_grads, *param_grads)
 
 
 def shard_fused_query(query, mesh: Optional[Mesh]):
@@ -117,16 +154,21 @@ def make_nerf_emitter_fn(
       (the far-intersect collider), and NeRF density inside the object box
       is zero (the carve-out);
     - `params` is the model (None: the model given here) or a {name: tensor}
-      dict of its parameters; `detach_nerf` treats the radiance as a
-      constant for the caller's backward (the NeRF gets no gradient);
+      dict of its parameters, each of which that requires a gradient gets
+      one; `detach_nerf` detaches them, so that the NeRF gets no gradient
+      (the takeover's frozen emitter); the rays' origins and directions
+      get theirs either way;
     - `camera_index` picks the appearance embedding;
     - `rotater` + `rot_id` map the canonical object-frame query ray into
       the world (light) frame for turntable captures, after the collider
       (the object box lives in the canonical frame; near and far are
       distances along the ray, which the rigid rotation keeps);
-    - `use_fused` serves the query through the kernel query
-      (ops/mega_query.py: K5) where `serves_kernel_query` says so;
-      otherwise the model's own forward serves it;
+    - the route, of two: `use_fused` serves the query through the kernel
+      query (ops/mega_query.py: K5 forward; backward K3 and K6 with the
+      NeRF frozen, the staged recompute with a NeRF parameter trained)
+      where `serves_kernel_query` says so; otherwise the model's own
+      forward serves it, in RECOMPUTE_RAYS-row chunks recomputed in the
+      backward (`_ChunkedQuery`), frozen or trained;
     - `samples_override` = (proposal_0, proposal_1, nerf) replaces the
       per-ray sample schedule for the emitter query only; counts must be
       multiples of 8;
@@ -158,8 +200,7 @@ def make_nerf_emitter_fn(
         if detach_nerf:
             p = {k: v.detach() for k, v in p.items()}
 
-        def emitter_fn(x_unit: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-            o_w = coords.unit_to_world(x_unit, scene_scale)
+        def rays_of(o_w: torch.Tensor, d: torch.Tensor) -> RayBundle:
             n = o_w.shape[0]
             cam = id_column(0 if camera_index is None else camera_index, (n, 1), o_w.device)
             rays = RayBundle(
@@ -175,14 +216,22 @@ def make_nerf_emitter_fn(
                 rid = id_column(rot_id, (n,), o_w.device)
                 rays = rays.replace(origins=rotater.apply_points(rid, rays.origins),
                                     directions=rotater.apply_dirs(rid, rays.directions))
-            if fused_query is not None:
-                return fused_query(p, rays, camera_index=camera_index)
+            return rays
+
+        def model_query(rows: dict, params: tuple) -> tuple:
             out = torch.func.functional_call(
-                model, p, (rays,),
-                dict(train=False, hdr_radiance_only=True, disable_aabb=box, disable_aabb_on=True),
+                model, dict(zip(p, params)), (rays_of(rows["origins"], rows["directions"]),),
+                dict(train=False, hdr_radiance_only=True, disable_aabb=box, disable_aabb_on=True,
+                     spacing_bins=rows.get("spacing_bins")),
                 strict=False,
             )
-            return out["rgb"]
+            return out["rgb"], out["spacing_bins"]
+
+        def emitter_fn(x_unit: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+            o_w = coords.unit_to_world(x_unit, scene_scale)
+            if fused_query is not None:
+                return fused_query(p, rays_of(o_w, d), camera_index=camera_index)
+            return _ChunkedQuery.apply(model_query, o_w, d, *p.values())
 
         return emitter_fn
 

@@ -202,6 +202,33 @@ def test_hash_emitter_matches_jax():
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("detach_nerf", [True, False], ids=["frozen", "trained"])
+def test_hash_emitter_vjp_matches_jax(monkeypatch, detach_nerf):
+    """make_nerf_emitter_fn on a hash model through its chunked route
+    (`_ChunkedQuery`: RECOMPUTE_RAYS at 16, 45 rays, so three chunks and a
+    padded one), with the NeRF frozen and trained: the radiance and the
+    gradients of x and d given a cotangent against jax.vjp through the JAX
+    emitter (its parameters held, not differentiated), at the file's bar."""
+    from nerf_emitter_tpu_torch.ops import mega_query
+
+    monkeypatch.setattr(mega_query, "RECOMPUTE_RAYS", 16)
+    jm, params, pm = hash_pair()
+    rng = np.random.default_rng(17)
+    x = rng.uniform(0.35, 0.65, size=(45, 3)).astype(np.float32)
+    d = rng.normal(size=(45, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    g = rng.uniform(size=(45, 3)).astype(np.float32)
+    ref, vjp = jax.vjp(j_emitter(jm, 1.0, jnp.asarray(OBJECT_BOX), far=4.0)(params, camera_index=2),
+                       jnp.asarray(x), jnp.asarray(d))
+    tx, td = torch.from_numpy(x).requires_grad_(), torch.from_numpy(d).requires_grad_()
+    out = make_nerf_emitter_fn(pm, 1.0, OBJECT_BOX, far=4.0, detach_nerf=detach_nerf)(camera_index=2)(tx, td)
+    got = torch.autograd.grad(out, (tx, td), torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+    for a, b in zip(got, vjp(jnp.asarray(g))):
+        assert np.abs(np.asarray(b)).max() > 0
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.parametrize("implementation", ["freq", "hash"])
 @pytest.mark.parametrize("fake_contraction", [True, False], ids=["fake", "nonlinear"])
 def test_fused_gate(implementation, fake_contraction):

@@ -117,5 +117,9 @@ def test_model_eval_outputs_match_jax(box):
         assert out[k].shape == ref[k].shape, k
         _close(out[k], ref[k])
     rgb_only = pm(tr, disable_aabb=box, disable_aabb_on=box is not None, hdr_radiance_only=True)
-    assert list(rgb_only) == ["rgb"]
+    assert list(rgb_only) == ["rgb", "spacing_bins"]
     np.testing.assert_array_equal(rgb_only["rgb"].detach().numpy(), out["rgb"].detach().numpy())
+    # the final samples' edges given back replace the proposal stage: the same answer
+    again = pm(tr, disable_aabb=box, disable_aabb_on=box is not None, hdr_radiance_only=True,
+               spacing_bins=rgb_only["spacing_bins"])
+    np.testing.assert_array_equal(again["rgb"].detach().numpy(), out["rgb"].detach().numpy())

@@ -238,6 +238,42 @@ def test_emitter_fn_matches_jax(use_fused):
     assert out.shape == (64, 3)
 
 
+@pytest.mark.parametrize("detach_nerf", [True, False], ids=["frozen", "trained"])
+def test_emitter_fn_vjp_matches_jax(monkeypatch, detach_nerf):
+    """make_nerf_emitter_fn on the freq model through the model's forward
+    in chunks (`_ChunkedQuery`: RECOMPUTE_RAYS at 16, 45 rays, so three
+    chunks and a padded one), with the NeRF frozen and trained, given a
+    cotangent: the radiance against the JAX emitter at
+    test_emitter_fn_matches_jax's model-forward bar (far=4, as there); the
+    gradients of x and d against the same call in one chunk, equal (measured:
+    0), and against jax.vjp through the JAX emitter (its parameters held)
+    by the relative L2 norm over the rays at 5e-2. The freq field's top
+    octave, 2^9 times its lowest, scales a rounding of the sample's
+    position by as much in its derivative, so the two frameworks'
+    gradients part by 2.5% in norm (measured, in one chunk and in chunks
+    alike; single rays up to 2x), where the radiance parts by 1.7e-3."""
+    from nerf_emitter_tpu_torch.ops import mega_query
+
+    jm, params, pm = _pair(samples=(16, 8), nerf=8)
+    x, d = _x_unit_d(45, seed=15)
+    g = np.random.default_rng(16).uniform(size=(45, 3)).astype(np.float32)
+    ref, vjp = jax.vjp(j_emitter(jm, 1.0, jnp.asarray(OBJECT_BOX), far=4.0)(params, camera_index=1),
+                       jnp.asarray(x), jnp.asarray(d))
+    answers = []
+    for chunk in (16, 1 << 16):
+        monkeypatch.setattr(mega_query, "RECOMPUTE_RAYS", chunk)
+        tx, td = torch.from_numpy(x).requires_grad_(), torch.from_numpy(d).requires_grad_()
+        out = make_nerf_emitter_fn(pm, 1.0, OBJECT_BOX, far=4.0, use_fused=False, detach_nerf=detach_nerf)(
+            camera_index=1)(tx, td)
+        answers.append((out.detach(), *torch.autograd.grad(out, (tx, td), torch.from_numpy(g))))
+    (out, *got), whole = answers
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-3, atol=1e-5)
+    for a, b, c in zip(got, whole[1:], vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+        c = np.asarray(c)
+        assert np.linalg.norm(a.numpy() - c) <= 5e-2 * np.linalg.norm(c)
+
+
 def test_two_kernel_query_splits_off_the_background():
     """K4's aux output (acc, rgb_last per ray) on the bins K3 gives the
     query's rays reproduces the query's (K5's) answer exactly and splits it

@@ -6,7 +6,8 @@ wrappers' counts of the same period, the kept answers equal a hand count
 from render_direct's hit and visibility, and the kernel query's backward
 counts its recompute chunks. The takeover is the benchmark's K5 cell at
 its tiny size (benchmark/tiny.json), lit on the CPU by the model's own
-forward."""
+forward: the frozen NeRF's chunked route, whose backward is the span
+emitter.backward."""
 
 import inspect
 import json
@@ -107,6 +108,7 @@ PARENTS = {
     "sdf.band_backward": ("takeover.sdf_step",),
     "sdf.apply": ("takeover.sdf_step",),
     "emitter.forward": ("sdf.detached", "sdf.band_forward", "sdf.band_backward"),
+    "emitter.backward": ("sdf.band_backward",),
     "render.march": ("sdf.detached", "sdf.band_forward", "sdf.band_backward"),
 }
 
